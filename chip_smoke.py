@@ -6,16 +6,20 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
 
 1. device: print the card's name and power limit (nvidia-smi), build the
    PDHG sweep kernels from ``dispatches_tpu_torch/csrc`` with nvcc;
-2. kernels: hold each kernel (avg and halpern; f32, f64 and bf16-operand
-   tiers; B = 4096 and a ragged B = 366) to its plain PyTorch version on
-   the card at the main-path shapes (m 218, n 193, k 40), then time the
-   f32 kernels against their plain versions in turns with CUDA events;
-3. main path: build the 24-h wind+battery price-taker LP on ``cuda``,
+2. main path: build the 24-h wind+battery price-taker LP on ``cuda``,
    solve 366, 1024 and 4096 LMP scenarios through
    ``make_pdlp_batch_solver`` (halpern, f32, tol 1e-5), then 366 with
    ``algorithm="avg"`` and 366 with ``precision="bf16x-f32"``; check
    that the kernels were launched and that 16 scenarios agree with
-   scipy's HiGHS on the port's own LP data to 1e-4 relative.
+   scipy's HiGHS on the port's own LP data to 1e-4 relative; then trace
+   one B = 4096 solve with torch.profiler;
+3. kernels: hold each kernel (avg and halpern; f32, f64 and bf16-operand
+   tiers) to its plain PyTorch version on the card: at the main-path
+   shapes (m 218, n 193, k 40; B = 4096 and a ragged B = 366), and on a
+   dense, an empty-row-and-column, a dense too large for shared memory
+   and a wide operator, so that every kernel family runs; then time the
+   kernels against their plain versions in turns with CUDA events (f32 at
+   B = 366, 1024, 4096; f64 and bf16 at 4096) and sweep lanes per block.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -42,6 +46,7 @@ K_STEPS = 40
 OBJ_RTOL = 1e-4                 # the system's objective target vs HiGHS
 F32_TOL, F64_TOL = 1e-5, 1e-10  # kernel vs plain, relative to max(1, |want|)
 H100_F32_FLOPS = 67e12          # CUDA-core f32 peak, H100 SXM data sheet
+H100_F64_FLOPS = 34e12          # CUDA-core f64 peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 
 
@@ -92,20 +97,33 @@ def phase_device(torch):
     print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
     log = lib.with_suffix(".log")
     if log.exists():
-        text = log.read_text()
-        regs = [int(w) for line in text.splitlines() if "registers" in line
-                for w, nxt in zip(line.split(), line.split()[1:]) if nxt.startswith("registers")]
-        spills = [line.strip() for line in text.splitlines()
-                  if "spill" in line and " 0 bytes spill stores" not in line]
-        print(f"[build] ptxas: max {max(regs) if regs else '?'} registers/thread, "
-              f"{len(spills)} kernels with spills")
-        for line in spills[:8]:
-            print(f"[build]   {line}")
+        _ptxas_summary(log.read_text())
     return card
 
 
+def _ptxas_summary(text):
+    """Registers and spill bytes per kernel family (type, items per
+    thread; 0 = state in shared memory), from the ptxas -v build log."""
+    import re
+
+    fam, worst = None, {}
+    for line in text.splitlines():
+        hit = re.search(r"pdhg_sweep_kernelI([fd])Lb(\d)ELb(\d)ELi(\d+)ELb(\d)E", line)
+        if "Compiling entry function" in line:
+            fam = ("f32" if hit.group(1) == "f" else "f64", int(hit.group(4))) if hit else None
+        regs = re.search(r"Used (\d+) registers", line)
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if fam and (regs or spill):
+            r, sp = worst.get(fam, (0, 0))
+            worst[fam] = (max(r, int(regs.group(1))) if regs else r,
+                          max(sp, int(spill.group(1))) if spill else sp)
+    for (dt, items), (r, sp) in sorted(worst.items()):
+        print(f"[build] ptxas {dt} items/thread={items}: max {r} registers/thread, "
+              f"max {sp} bytes spill stores")
+
+
 # ---------------------------------------------------------------------
-# phase 2: kernels against their plain versions
+# phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------
 
 def _sweep_inputs(torch, Ah, lb, ub, m_eq, B, dtype, device, seed):
@@ -146,6 +164,31 @@ def _args(algo, const, lane):
 
 
 def _time_ms(torch, fn, reps):
+    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
+    graph, the graph replayed between CUDA events.  A sweep of the new
+    kernels takes less device time than the wrapper's Python takes to
+    launch it, so events around eager calls would time the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _call_ms(torch, fn, reps):
+    """Time of one eager call of ``fn``, host launch included."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -156,6 +199,44 @@ def _time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _other_operators(Ah_main, lb_main, ub_main, m_eq_main):
+    """(name, Ah, lb, ub, m_eq, lanes) beside the main path's operator:
+    a fully dense one, the main one with an empty row and column, a dense
+    one too large for shared memory (read through the read-only cache)
+    and a wide sparse one whose lane state does not fit the registers
+    (held in shared memory)."""
+    rng = np.random.default_rng(7)
+
+    def box(n):
+        lb = np.where(rng.random(n) < 0.2, -np.inf, -1.0 - rng.random(n))
+        return lb, np.where(rng.random(n) < 0.2, np.inf, 1.0 + rng.random(n))
+
+    empty = Ah_main.copy()
+    empty[5, :] = 0.0
+    empty[:, 7] = 0.0
+    wide = np.zeros((2100, 200))
+    for i in range(2100):
+        wide[i, rng.choice(200, 2, replace=False)] = rng.standard_normal(2)
+    return [("dense 64x48", rng.standard_normal((64, 48)), *box(48), 32, 8),
+            ("empty row+col", empty, lb_main, ub_main, m_eq_main, 8),
+            ("dense 218x193", rng.standard_normal((218, 193)), *box(193), 122, 8),
+            ("wide 2100x200", wide, *box(200), 1000, 2)]
+
+
+def _bound(algo, m, n, nnz, B, dtype_name):
+    """Least time for one sweep: each lane input and the packed operator
+    read once, each output written once, at the HBM rate; or the FLOPs the
+    nonzeros need at the CUDA-core peak of the compute type.  Returns
+    (ms, "bytes" | "operations")."""
+    esz = 8 if dtype_name == "f64" else 4
+    per_lane = (7 * (n + m) + 3) if algo == "halpern" else (5 * (n + m) + 2)
+    nbytes = esz * (B * per_lane + 2 * nnz + 2 * n + m) + 4 * (m + n + 2 + 2 * nnz)
+    flops = 4 * nnz * K_STEPS * B
+    peak = H100_F64_FLOPS if dtype_name == "f64" else H100_F32_FLOPS
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_kernels(torch, lp, dev):
     from dispatches_tpu_torch.kernels import pdhg_sweep as ks
     from dispatches_tpu_torch.solvers.pdlp import PDLPOptions, _scalings
@@ -163,88 +244,148 @@ def phase_kernels(torch, lp, dev):
     K, G = lp["K"], lp["G"]
     A = np.vstack([K, G])
     m_eq = K.shape[0]
+    tiers = (("f32", torch.float32, False, F32_TOL), ("f64", torch.float64, False, F64_TOL),
+             ("bf16", torch.float32, True, F32_TOL))
     report = {}
+
+    def compare(algo, wrapper, plain, const, lane, tier, low, tol, lanes, label,
+                stepwise=False):
+        """The kernel against its plain version over one K_STEPS sweep, or
+        (``stepwise``) over K_STEPS one-step sweeps, each started from the
+        kernel's own state; ``lanes`` None is the wrapper's own choice from
+        B, as on the main path."""
+        args = _args(algo, const, lane)
+        m, n = const["Ah"].shape
+        lanes = lanes or ks.default_lanes(lane["x"].shape[0], dev)
+        cfg = ks.launch_config(algo == "halpern", m, n, int(torch.count_nonzero(const["Ah"])),
+                               lanes, const["Ah"].dtype)
+        err, scale, finite = 0.0, 1.0, True
+        for _ in range(K_STEPS if stepwise else 1):
+            k = 1 if stepwise else K_STEPS
+            got = wrapper(*args, k=k, low_precision=low, lanes_per_block=lanes)
+            want = plain(*args, k=k, low_precision=low)
+            torch.cuda.synchronize()
+            err = max(err, *(float((g - w).abs().max()) for g, w in zip(got, want)))
+            scale = max(scale, *(float(w.abs().max()) for w in want))
+            finite = finite and all(bool(torch.isfinite(g).all()) for g in got)
+            # the next step from the kernel's state: halpern's k0 counts on
+            if algo == "halpern":
+                args[5:7], args[9:11], args[15] = got[:2], got[4:], args[15] + 1.0
+            else:
+                args[5:9] = got
+        ok = finite and err <= tol * scale
+        where = (f"items/thread={cfg.items}" if cfg.items else "state in smem") + \
+            f" threads={cfg.threads} op in {'smem' if cfg.op_in_smem else 'L1/L2'}"
+        print(f"[kernel] {algo:7s} {tier:4s} {label:14s} B={lane['x'].shape[0]:5d} "
+              f"lanes/block={lanes:2d} ({where}){' stepwise' if stepwise else ''} "
+              f"max|got-want|={err:.3e} scale={scale:.3e} tol={tol:.0e} {'ok' if ok else 'FAIL'}")
+        check(ok, f"{algo} kernel disagrees with its plain version ({tier}, {label}, "
+                  f"B={lane['x'].shape[0]}, lanes {lanes}): {err:.3e} > {tol:.0e} * {scale:.3e}")
+        return err, (cfg.items > 0, cfg.op_in_smem)
+
     for algo, wrapper, plain in (("halpern", ks.halpern_sweep, ks.halpern_sweep_reference),
                                  ("avg", ks.avg_sweep, ks.avg_sweep_reference)):
         _, dc, Ah, _ = _scalings(A, PDLPOptions(algorithm=algo))
         lb, ub = lp["lb"] / dc, lp["ub"] / dc
-        errs = {}
-        for tier, dtype, low, tol in (("f32", torch.float32, False, F32_TOL),
-                                      ("f64", torch.float64, False, F64_TOL),
-                                      ("bf16", torch.float32, True, F32_TOL)):
-            lanes = 8
-            for B in (4096, N_SCENARIOS):
-                const, lane = _sweep_inputs(torch, Ah, lb, ub, m_eq, B, dtype, dev, seed=B)
-                args = _args(algo, const, lane)
-                got = wrapper(*args, k=K_STEPS, low_precision=low, lanes_per_block=lanes)
-                want = plain(*args, k=K_STEPS, low_precision=low)
-                torch.cuda.synchronize()
-                err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-                scale = max(1.0, max(float(w.abs().max()) for w in want))
-                finite = all(bool(torch.isfinite(g).all()) for g in got)
-                ok = finite and err <= tol * scale
-                print(f"[kernel] {algo:7s} {tier:4s} B={B:5d} lanes/block={lanes:2d} "
-                      f"max|got-want|={err:.3e} scale={scale:.3e} tol={tol:.0e} "
-                      f"{'ok' if ok else 'FAIL'}")
-                check(ok, f"{algo} kernel disagrees with its plain version "
-                          f"({tier}, B={B}): {err:.3e} > {tol:.0e} * {scale:.3e}")
-                errs[(tier, B)] = err
-
-        # timing at the main-path config (f32, B=4096), kernel and plain
-        # version in turns (plain, kernel, kernel, plain) after warm-up
-        B = 4096
-        const, lane = _sweep_inputs(torch, Ah, lb, ub, m_eq, B, torch.float32, dev, seed=B)
-        args = _args(algo, const, lane)
-
-        def run_kernel():
-            wrapper(*args, k=K_STEPS, lanes_per_block=8)
-
-        def run_plain():
-            plain(*args, k=K_STEPS)
-
-        for fn in (run_kernel, run_plain):
-            fn()
-        torch.cuda.synchronize()
-        plain_ms = [_time_ms(torch, run_plain, 3)]
-        kern_ms = [_time_ms(torch, run_kernel, 20), _time_ms(torch, run_kernel, 20)]
-        plain_ms.append(_time_ms(torch, run_plain, 3))
         m, n = Ah.shape
         nnz = int(np.count_nonzero(Ah))
-        # bytes the function must move: each input read once (per lane
-        # halpern reads x xa xs c | z za zs b | tau sig k0 and writes
-        # x xt xs | z zt zs; avg reads x xs c | z zs b | tau sig and
-        # writes x xs | z zs), plus the two dense matrices and bounds
-        per_lane = (7 * (n + m) + 3) if algo == "halpern" else (5 * (n + m) + 2)
-        nbytes = 4 * (B * per_lane + 2 * m * n + 2 * n + m)
-        flops_needed = 4 * nnz * K_STEPS * B   # the products over Ah's nonzeros
-        flops_dense = 4 * m * n * K_STEPS * B  # what the dense kernel does
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = flops_needed / H100_F32_FLOPS * 1e3
-        report[algo] = {
-            "max_abs_err": errs[("f32", 4096)],
-            "ms": min(kern_ms), "plain_ms": min(plain_ms),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "dense_ops_ms": flops_dense / H100_F32_FLOPS * 1e3,
-        }
-        print(f"[kernel] {algo} f32 B={B} k={K_STEPS}: kernel {kern_ms[0]:.4f}/{kern_ms[1]:.4f} ms, "
-              f"plain {plain_ms[0]:.4f}/{plain_ms[1]:.4f} ms, bound {report[algo]['bound_ms']:.4f} ms "
-              f"({report[algo]['bound_by']}; Ah nnz {nnz}), dense-work bound "
-              f"{report[algo]['dense_ops_ms']:.4f} ms")
-        # the lanes-per-block knob: how the kernel time moves with the
-        # lanes that share each matrix element loaded from L2
-        sweep_ms = {}
-        for lanes in (4, 16, 8):
-            wrapper(*args, k=K_STEPS, lanes_per_block=lanes)
-            sweep_ms[lanes] = _time_ms(
-                torch, lambda: wrapper(*args, k=K_STEPS, lanes_per_block=lanes), 20)
-        print(f"[kernel] {algo} f32 B={B} lanes/block -> ms: "
-              + ", ".join(f"{k}: {v:.4f}" for k, v in sorted(sweep_ms.items())))
+        errs, families = {}, set()
+        # agreement: the main path's operator, then the others.  Where the
+        # f32 tier is not bitwise, the plain version's matmul sums in
+        # another order than the kernel's ascending one (cuBLAS picks it by
+        # shape); a last-bit difference then flips bf16 operand roundings
+        # that the later steps amplify, so there the bf16 tier is held to
+        # its plain version step by step along the kernel's trajectory
+        for tier, dtype, low, tol in tiers:
+            for B in (PEAK_BATCHES[-1], N_SCENARIOS):
+                const, lane = _sweep_inputs(torch, Ah, lb, ub, m_eq, B, dtype, dev, seed=B)
+                errs[(tier, B)], fam = compare(algo, wrapper, plain, const, lane, tier,
+                                               low, tol, None, "main")
+                families.add(fam)
+            for label, Ao, lbo, ubo, m_eqo, lanes in _other_operators(Ah, lb, ub, m_eq):
+                const, lane = _sweep_inputs(torch, Ao, lbo, ubo, m_eqo, N_SCENARIOS, dtype,
+                                            dev, seed=11)
+                errs[(tier, label)], fam = compare(
+                    algo, wrapper, plain, const, lane, tier, low, tol, lanes, label,
+                    stepwise=low and errs[("f32", label)] > 0)
+                families.add(fam)
+        # registers or shared memory for the state, shared memory or the
+        # read-only cache for the operator: all four kernel families ran
+        check(len(families) == 4, f"{algo}: kernel families driven: {sorted(families)}")
+
+        # times: the kernel and its plain version in turns (plain, kernel,
+        # kernel, plain) after warm-up, at the lanes per block the main path
+        # takes, with the operator packed once as the solver packs it
+        times = {}
+        for tier, dtype, low, _ in tiers:
+            for B in ((N_SCENARIOS, *PEAK_BATCHES) if tier == "f32" else PEAK_BATCHES[-1:]):
+                const, lane = _sweep_inputs(torch, Ah, lb, ub, m_eq, B, dtype, dev, seed=B)
+                args = _args(algo, const, lane)
+                packed = ks.pack_operator(const["Ah"])
+
+                def run_kernel():
+                    wrapper(*args, k=K_STEPS, low_precision=low, packed=packed)
+
+                def run_plain():
+                    plain(*args, k=K_STEPS, low_precision=low)
+
+                for fn in (run_kernel, run_plain):
+                    fn()
+                torch.cuda.synchronize()
+                plain_ms = [_time_ms(torch, run_plain, 3)]
+                kern_ms = [_time_ms(torch, run_kernel, 200), _time_ms(torch, run_kernel, 200)]
+                plain_ms.append(_time_ms(torch, run_plain, 3))
+                call_ms = _call_ms(torch, run_kernel, 200)
+                bound_ms, bound_by = _bound(algo, m, n, nnz, B, tier if tier == "f64" else "f32")
+                times[(tier, B)] = (min(kern_ms), min(plain_ms), bound_ms, bound_by)
+                print(f"[time] {algo:7s} {tier:4s} B={B:5d} lanes/block={ks.default_lanes(B, dev)}: kernel "
+                      f"{kern_ms[0]:.4f}/{kern_ms[1]:.4f} ms, plain {plain_ms[0]:.4f}/"
+                      f"{plain_ms[1]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; nnz {nnz}), "
+                      f"{bound_ms / min(kern_ms):.1%} of bound; one eager call {call_ms:.4f} ms")
+        if algo == "halpern":
+            # where a sweep's time goes: the fixed cost (k = 0) and the cost
+            # of one step, with Ah as it is and with its longest column cut
+            # to four nonzeros (every step waits for its slowest thread)
+            cut = Ah.copy()
+            longest = int(np.argmax((Ah != 0).sum(axis=0)))
+            cut[np.nonzero(Ah[:, longest])[0][4:], longest] = 0.0
+            for label, Ao in (("as is", Ah), ("longest column cut to 4", cut)):
+                for B in (N_SCENARIOS, PEAK_BATCHES[-1]):
+                    const, lane = _sweep_inputs(torch, Ao, lb, ub, m_eq, B, torch.float32,
+                                                dev, seed=B)
+                    args = _args(algo, const, lane)
+                    packed = ks.pack_operator(const["Ah"])
+                    t = {k: _time_ms(torch, lambda: wrapper(*args, k=k, packed=packed), 50)
+                         for k in (0, 10, K_STEPS)}
+                    print(f"[steps] halpern f32 B={B:5d} Ah {label}: k=0 {t[0]:.4f} ms, "
+                          f"one step {(t[K_STEPS] - t[10]) / (K_STEPS - 10) * 1e3:.3f} us")
+        ms, plain_ms, bound_ms, bound_by = times[("f32", PEAK_BATCHES[-1])]
+        report[algo] = {"max_abs_err": errs[("f32", PEAK_BATCHES[-1])], "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+
+        # lanes per block: each value checked against the plain version,
+        # then timed, at the annual and the peak batch (f32)
+        for B in (N_SCENARIOS, PEAK_BATCHES[-1]):
+            const, lane = _sweep_inputs(torch, Ah, lb, ub, m_eq, B, torch.float32, dev, seed=B)
+            args = _args(algo, const, lane)
+            packed = ks.pack_operator(const["Ah"])
+            sweep_ms = {}
+            for lanes in ks.LANES_PER_BLOCK:
+                try:
+                    ks.launch_config(algo == "halpern", m, n, nnz, lanes, torch.float32)
+                except ValueError:
+                    continue
+                compare(algo, wrapper, plain, const, lane, "f32", False, F32_TOL, lanes,
+                        "main")
+                sweep_ms[lanes] = _time_ms(torch, lambda: wrapper(
+                    *args, k=K_STEPS, lanes_per_block=lanes, packed=packed), 200)
+            print(f"[lanes] {algo} f32 B={B} lanes/block -> ms: "
+                  + ", ".join(f"{k}: {v:.4f}" for k, v in sorted(sweep_ms.items())))
     return report
 
 
 # ---------------------------------------------------------------------
-# phase 3: the main path
+# phase 2: the main path and its trace
 # ---------------------------------------------------------------------
 
 def highs_objectives(torch, nlp, lp, lmps, cfs):
@@ -347,9 +488,67 @@ def phase_main_path(torch, dev):
             check(rel.max() <= OBJ_RTOL,
                   f"{label} B={B}: objective error {rel.max():.3e} > {OBJ_RTOL}")
         print(line)
+        if kernel == "halpern" and not extra and B == PEAK_BATCHES[-1]:
+            traced = (solver, params)
     launches = {"halpern": ks.halpern_sweep.launches, "avg": ks.avg_sweep.launches}
     check(all(v > 0 for v in launches.values()), f"kernel launch counts {launches}")
+    phase_trace(torch, *traced)
     return lp, launches
+
+
+def phase_trace(torch, solver, params):
+    """One warmed halpern f32 B = 4096 solve under torch.profiler: the top
+    ten device operations by total time, the sweep kernel's share of the
+    device time and of the window, and the device's idle share.  The
+    profiler's table (60 rows) goes to standard error."""
+    from torch.profiler import ProfilerActivity, profile
+
+    solver(params)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = solver(params)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.isfinite(res.obj).all()), "traced solve: objectives not finite")
+
+    def on_device(e):
+        return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    ops = sorted((e for e in prof.key_averages() if on_device(e) and dev_us(e) > 0),
+                 key=dev_us, reverse=True)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if on_device(e) and e.time_range.end > e.time_range.start)
+    print(f"[trace] halpern f32 B={res.obj.shape[0]} solve: {wall_ms:.1f} ms host wall "
+          "under the profiler")
+    if not ops or not spans:
+        print("[trace] device time not measured: the profiler recorded no device "
+              "activity (key_averages() has no device time)")
+        return
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    starts = [e.time_range.start for e in prof.events()]
+    ends = [e.time_range.end for e in prof.events()]
+    window = max(ends) - min(starts)
+    total = sum(dev_us(e) for e in ops)
+    sweep = [e for e in ops if "pdhg_sweep_kernel" in e.key]
+    sweep_us = sum(dev_us(e) for e in sweep)
+    print(f"[trace] window {window / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
+          f"device idle share {1 - busy / window:.4f}")
+    print(f"[trace] sweep kernel: {sum(e.count for e in sweep)} launches, "
+          f"{sweep_us / 1e3:.3f} ms = {sweep_us / total:.4f} of device time, "
+          f"{sweep_us / window:.4f} of the window")
+    print(f"[trace] device operations: {len(ops)} kinds, {sum(e.count for e in ops)} "
+          f"launches, {total / 1e3:.3f} ms; top ten by total time:")
+    for e in ops[:10]:
+        print(f"[trace]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
+    print(prof.key_averages().table(row_limit=60), file=sys.stderr)
 
 
 def main():

@@ -49,7 +49,9 @@ class BatchPDLPOptions(PDLPOptions):
     sweep: str = "auto"       # "auto" (kernel on cuda, plain on cpu) |
     #                           "cuda" (kernel; needs a cuda device) |
     #                           "torch" (the plain sweep on any device)
-    lanes_per_block: int = 8  # CUDA kernel: scenario lanes per thread block
+    lanes_per_block: int | None = None  # CUDA kernel: scenario lanes per
+    #                           thread block; None: chosen from the batch
+    #                           (kernels/pdhg_sweep.py:default_lanes)
 
 
 def _tree_map(fn, tree, *rest):
@@ -128,7 +130,11 @@ def make_pdlp_batch_solver(nlp, options: BatchPDLPOptions = BatchPDLPOptions(),
         fn = _kern.halpern_sweep if use_kernel else _kern.halpern_sweep_reference
     else:
         fn = _kern.avg_sweep if use_kernel else _kern.avg_sweep_reference
-    extra = {"lanes_per_block": opt.lanes_per_block} if use_kernel else {}
+    # the kernels' packed operator, made once here from the host copy of
+    # Ah, so no sweep copies the operator back from the card
+    extra = ({"lanes_per_block": opt.lanes_per_block,
+              "packed": _kern.pack_operator(torch.as_tensor(Ah).to(dtype), device=dev)}
+             if use_kernel else {})
     sweep = functools.partial(fn, Ah_j, AhT_j, lb_h, ub_h, is_eq_f, k=ce,
                               low_precision=low_prec, **extra)
 

@@ -272,10 +272,25 @@ def test_wrappers_validate_operands(models):
 
 
 def test_smem_bytes_matches_the_kernel_layout():
-    # per lane: halpern 6 (m + n) + 3 elements, avg 4 (m + n) + 3
-    assert ks.smem_bytes(True, 218, 193, 8, torch.float32) == 8 * (6 * 411 + 3) * 4
-    assert ks.smem_bytes(False, 218, 193, 16, torch.float64) == 16 * (4 * 411 + 3) * 8
-    assert ks.smem_bytes(True, 218, 193, 8, torch.float64) <= ks.SMEM_LIMIT_BYTES
+    # per lane: the two operand vectors and tau, sig, k0, (m + n + 3)
+    # elements, plus the state when it lives in shared memory (halpern
+    # 5 (m + n), avg 3 (m + n)); per block: the packed operator, 2 nnz
+    # values and m + n + 2 + 2 nnz int32, when it fits
+    def op(esz):
+        return 2 * 504 * esz + 4 * (411 + 2 + 2 * 504)
+
+    cfg = ks.launch_config(True, 218, 193, 504, 8, torch.float32)
+    assert cfg == (2, 896, True, 8 * (411 + 3) * 4 + op(4))
+    cfg = ks.launch_config(False, 218, 193, 504, 8, torch.float64)
+    assert cfg == (4, 448, True, 8 * (411 + 3) * 8 + op(8))
+    cfg = ks.launch_config(True, 2100, 200, 4200, 2, torch.float32)
+    assert cfg.items == 0 and cfg.op_in_smem
+    assert cfg.smem_bytes == 2 * (2303 + 5 * 2300) * 4 + 2 * 4200 * 4 + 4 * (2302 + 8400)
+    cfg = ks.launch_config(False, 218, 193, 218 * 193, 8, torch.float32)
+    assert not cfg.op_in_smem and cfg.smem_bytes == 8 * 414 * 4
+    for lanes, dtype in ((16, torch.float32), (8, torch.float64)):
+        assert ks.launch_config(True, 218, 193, 504, lanes, dtype).smem_bytes \
+            <= ks.SMEM_LIMIT_BYTES
 
 
 # ---------------------------------------------------------------------
