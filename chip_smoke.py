@@ -19,7 +19,19 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    dense, an empty-row-and-column, a dense too large for shared memory
    and a wide operator, so that every kernel family runs; then time the
    kernels against their plain versions in turns with CUDA events (f32 at
-   B = 366, 1024, 4096; f64 and bf16 at 4096) and sweep lanes per block.
+   B = 366, 1024, 4096; f64 and bf16 at 4096) and sweep lanes per block;
+4. the interior-point path (float64; it runs no hand-written kernel, and
+   the sweep kernels' counts are read around it to show so):
+   ``[entry]`` ``entry()`` over its 8 LMP lanes, status-0 objectives
+   within 1e-6 of HiGHS; ``[ipm]`` the phase-2 model at B = 366,
+   max_iter 300, on the structured (``kkt="auto"``) and the dense KKT
+   path, 16 lanes within 1e-6 of HiGHS; ``[ipm-trace]`` one warmed
+   structured B = 366 solve under torch.profiler; ``[pdlp1]`` the
+   per-scenario PDLP solver on 4 scenarios (halpern f32 tol 1e-5; f64
+   tol 1e-8 with the polish); ``[factory]`` ``SolverFactory("ipopt")``
+   and ``("cbc")`` on a storage LP, and ``cbc``'s IPM fallback on a
+   non-affine model; ``[optimize]`` ``wind_battery_optimize`` at T = 24
+   and T = 168 with the battery size free, against HiGHS.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -44,6 +56,7 @@ PEAK_BATCHES = (1024, 4096)
 N_HIGHS = 16
 K_STEPS = 40
 OBJ_RTOL = 1e-4                 # the system's objective target vs HiGHS
+IPM_RTOL = 1e-6                 # IPM (tol 1e-8) and f64 PDLP objectives vs HiGHS
 F32_TOL, F64_TOL = 1e-5, 1e-10  # kernel vs plain, relative to max(1, |want|)
 H100_F32_FLOPS = 67e12          # CUDA-core f32 peak, H100 SXM data sheet
 H100_F64_FLOPS = 34e12          # CUDA-core f64 peak, H100 SXM data sheet
@@ -388,29 +401,32 @@ def phase_kernels(torch, lp, dev):
 # phase 2: the main path and its trace
 # ---------------------------------------------------------------------
 
-def highs_objectives(torch, nlp, lp, lmps, cfs):
-    """Objectives of the first scenarios solved by scipy's HiGHS on the
-    port's own LP data (K, G, bounds; c, q, h derived on the host)."""
+def highs_objective(torch, nlp, lp, p, label):
+    """The objective of one scenario (params ``p``, numpy leaves) solved by
+    scipy's HiGHS on the port's own LP data (K, G, bounds; c, q, h derived
+    on the host)."""
     from scipy.optimize import linprog
 
-    cpu = torch.device("cpu")
-    defaults = nlp.default_params()
-    x0 = torch.zeros(nlp.n, dtype=torch.float64, device=cpu)
+    x0 = torch.zeros(nlp.n, dtype=torch.float64, device=torch.device("cpu"))
     bounds = [(None if not np.isfinite(lo) else lo, None if not np.isfinite(hi) else hi)
               for lo, hi in zip(lp["lb"], lp["ub"])]
-    out = []
-    for s in range(len(lmps)):
-        p = {"p": {**defaults["p"], "lmp": lmps[s] * 1e-3,
-                   "windpower.capacity_factor": cfs[s]},
-             "fixed": defaults["fixed"]}
-        c = torch.func.grad(lambda x: nlp.objective(x, p))(x0).numpy()
-        q = -nlp.eq(x0, p).numpy()
-        h = -nlp.ineq(x0, p).numpy()
-        res = linprog(c, A_ub=lp["G"], b_ub=h, A_eq=lp["K"], b_eq=q,
-                      bounds=bounds, method="highs")
-        check(res.status == 0, f"HiGHS failed on scenario {s}: {res.message}")
-        out.append(float(nlp.user_objective(torch.as_tensor(res.x), p)))
-    return np.asarray(out)
+    c = torch.func.grad(lambda x: nlp.objective(x, p))(x0).numpy()
+    q = -nlp.eq(x0, p).numpy()
+    h = -nlp.ineq(x0, p).numpy()
+    res = linprog(c, A_ub=lp["G"] if lp["G"].size else None, b_ub=h if h.size else None,
+                  A_eq=lp["K"], b_eq=q, bounds=bounds, method="highs")
+    check(res.status == 0, f"HiGHS failed on {label}: {res.message}")
+    return float(nlp.user_objective(torch.as_tensor(res.x), p))
+
+
+def highs_objectives(torch, nlp, lp, lmps, cfs):
+    """HiGHS objectives of the first scenarios (LMPs in $/MWh)."""
+    defaults = nlp.default_params()
+    return np.asarray([highs_objective(
+        torch, nlp, lp, {"p": {**defaults["p"], "lmp": lmps[s] * 1e-3,
+                               "windpower.capacity_factor": cfs[s]},
+                         "fixed": defaults["fixed"]}, f"scenario {s}")
+        for s in range(len(lmps))])
 
 
 def phase_main_path(torch, dev):
@@ -432,6 +448,7 @@ def phase_main_path(torch, dev):
 
     ref = highs_objectives(torch, nlp, lp, lmps[:N_HIGHS], cfs[:N_HIGHS])
     defaults = nlp.default_params()
+    main = {"nlp": nlp, "lp": lp, "ref": ref, "lmps": lmps, "cfs": cfs}
 
     def batch(lmp_b, cf_b):
         return {"p": {**defaults["p"],
@@ -482,6 +499,8 @@ def phase_main_path(torch, dev):
                 f"refine_mean={refined:.2f} solves/s={B / dt:.1f} ({dt * 1e3:.1f} ms) "
                 f"peak_mem={torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
                 f"launches={launches}")
+        if lmp_b is lmps and not extra:
+            main["pdlp_obj"] = obj
         if lmp_b is lmps:
             rel = np.abs(obj[:N_HIGHS] - ref) / np.maximum(np.abs(ref), 1.0)
             line += f" obj_rel_err_vs_highs={rel.max():.3e}"
@@ -493,62 +512,277 @@ def phase_main_path(torch, dev):
     launches = {"halpern": ks.halpern_sweep.launches, "avg": ks.avg_sweep.launches}
     check(all(v > 0 for v in launches.values()), f"kernel launch counts {launches}")
     phase_trace(torch, *traced)
-    return lp, launches
+    return main, launches
 
 
-def phase_trace(torch, solver, params):
-    """One warmed halpern f32 B = 4096 solve under torch.profiler: the top
-    ten device operations by total time, the sweep kernel's share of the
-    device time and of the window, and the device's idle share.  The
-    profiler's table (60 rows) goes to standard error."""
+def profile_run(torch, run, tag):
+    """One call of ``run`` (already warmed) under torch.profiler: prints the
+    host wall, the profiled window, the device's busy time and idle share
+    and the top ten device operations by total time, with ``tag`` at the
+    head of each line.  Reads the profiler's raw events (the per-operation
+    tables would take minutes to build for a solve of 10^5-10^6 launches).
+    Returns (result, profiler, {name: (launches, device us)}, total device
+    us, window us); the dict is empty when the profiler saw no device
+    activity."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    solver(params)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = solver(params)
+        res = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    check(bool(torch.isfinite(res.obj).all()), "traced solve: objectives not finite")
-
-    def on_device(e):
-        return str(getattr(e, "device_type", "")).endswith("CUDA")
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    ops = sorted((e for e in prof.key_averages() if on_device(e) and dev_us(e) > 0),
-                 key=dev_us, reverse=True)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if on_device(e) and e.time_range.end > e.time_range.start)
-    print(f"[trace] halpern f32 B={res.obj.shape[0]} solve: {wall_ms:.1f} ms host wall "
-          "under the profiler")
-    if not ops or not spans:
-        print("[trace] device time not measured: the profiler recorded no device "
-              "activity (key_averages() has no device time)")
-        return
+    print(f"{tag} solve: {wall_ms:.1f} ms host wall under the profiler")
+    by_name, spans, lo, hi = {}, [], math.inf, -math.inf
+    for e in prof.profiler.kineto_results.events():
+        a, d = e.start_ns() / 1e3, e.duration_ns() / 1e3
+        lo, hi = min(lo, a), max(hi, a + d)
+        if e.device_type() == DeviceType.CUDA and d > 0:
+            spans.append((a, a + d))
+            n, t = by_name.get(e.name(), (0, 0.0))
+            by_name[e.name()] = (n + 1, t + d)
+    if not spans:
+        print(f"{tag} device time not measured: the profiler recorded no device activity")
+        return res, prof, {}, 0.0, 0.0
     busy, end = 0.0, -math.inf
-    for a, b in spans:
+    for a, b in sorted(spans):
         if b > end:
             busy += b - max(a, end)
             end = b
-    starts = [e.time_range.start for e in prof.events()]
-    ends = [e.time_range.end for e in prof.events()]
-    window = max(ends) - min(starts)
-    total = sum(dev_us(e) for e in ops)
-    sweep = [e for e in ops if "pdhg_sweep_kernel" in e.key]
-    sweep_us = sum(dev_us(e) for e in sweep)
-    print(f"[trace] window {window / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
+    window = hi - lo
+    total = sum(t for _, t in by_name.values())
+    print(f"{tag} window {window / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
           f"device idle share {1 - busy / window:.4f}")
-    print(f"[trace] sweep kernel: {sum(e.count for e in sweep)} launches, "
-          f"{sweep_us / 1e3:.3f} ms = {sweep_us / total:.4f} of device time, "
-          f"{sweep_us / window:.4f} of the window")
-    print(f"[trace] device operations: {len(ops)} kinds, {sum(e.count for e in ops)} "
-          f"launches, {total / 1e3:.3f} ms; top ten by total time:")
-    for e in ops[:10]:
-        print(f"[trace]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
+    print(f"{tag} device operations: {len(by_name)} kinds, {len(spans)} launches, "
+          f"{total / 1e3:.3f} ms; top ten by total time:")
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"{tag}   {t / 1e3:9.3f} ms {n:6d}x  {name[:100]}")
+    return res, prof, by_name, total, window
+
+
+def phase_trace(torch, solver, params):
+    """One warmed halpern f32 B = 4096 solve under torch.profiler, and the
+    sweep kernel's share of the device time and of the window.  The
+    profiler's table (60 rows) goes to standard error."""
+    solver(params)
+    torch.cuda.synchronize()
+    res, prof, by_name, total, window = profile_run(
+        torch, lambda: solver(params), f"[trace] halpern f32 B={params['p']['lmp'].shape[0]}")
+    check(bool(torch.isfinite(res.obj).all()), "traced solve: objectives not finite")
+    if by_name:
+        sweep = [v for k, v in by_name.items() if "pdhg_sweep_kernel" in k]
+        sweep_us = sum(t for _, t in sweep)
+        print(f"[trace] sweep kernel: {sum(n for n, _ in sweep)} launches, "
+              f"{sweep_us / 1e3:.3f} ms = {sweep_us / total:.4f} of device time, "
+              f"{sweep_us / window:.4f} of the window")
     print(prof.key_averages().table(row_limit=60), file=sys.stderr)
+
+
+# ---------------------------------------------------------------------
+# phase 4: the interior-point path, the per-scenario PDLP and the factory
+# ---------------------------------------------------------------------
+
+def _lanes_line(res):
+    st = res.status.cpu().numpy()
+    it = res.iterations.cpu().numpy()
+    counts = np.bincount(st, minlength=3)
+    return st, it, (f"status 0/1/2 = {counts[0]}/{counts[1]}/{counts[2]} "
+                    f"iters_mean={it.mean():.1f} iters_max={it.max()}")
+
+
+def phase_entry(torch, dev):
+    """``entry()`` over its 8 LMP lanes (max_iter 60, kkt="auto")."""
+    from dispatches_tpu_torch.entry import _build_nlp, entry
+    from dispatches_tpu_torch.solvers import IPMOptions, make_ipm_solver, make_lp_data
+
+    fn, (batched,) = entry(device=dev)
+    t0 = time.perf_counter()
+    obj = fn(batched)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    nlp = _build_nlp()
+    res = make_ipm_solver(nlp, IPMOptions(max_iter=60), device=dev)(batched)
+    check(torch.equal(res.obj, obj), "[entry] entry() and its solver disagree")
+    st, it, line = _lanes_line(res)
+    print(f"[entry] B=8 {line} solve {dt * 1e3:.1f} ms")
+    print(f"[entry] status {st.tolist()} iterations {it.tolist()}")
+    print(f"[entry] objectives {np.array2string(obj.cpu().numpy(), precision=6)}")
+    check(obj.shape == (8,) and bool(torch.isfinite(obj).all()), "[entry] objectives not finite")
+    lp = make_lp_data(nlp, device=dev)
+    d = nlp.default_params()
+    lmps = batched["p"]["lmp"]
+    ok = np.nonzero(st == 0)[0]
+    check(ok.size > 0, "[entry] no lane reached status 0")
+    ref = np.asarray([highs_objective(torch, nlp, lp, {"p": {**d["p"], "lmp": lmps[s]},
+                                                       "fixed": d["fixed"]}, f"entry lane {s}")
+                      for s in ok])
+    err = np.abs(obj.cpu().numpy()[ok] - ref) / np.maximum(np.abs(ref), 1.0)
+    print(f"[entry] status-0 lanes {ok.tolist()}: obj_rel_err_vs_highs max {err.max():.3e}")
+    check(err.max() <= IPM_RTOL, f"[entry] objective error {err.max():.3e} > {IPM_RTOL}")
+
+
+def phase_ipm(torch, dev, main_run):
+    """The phase-2 model at B = 366, max_iter 300, both KKT paths; returns
+    the structured solver and its params for the trace."""
+    from dispatches_tpu_torch.solvers import IPMOptions, make_ipm_solver
+
+    nlp, lmps, cfs = main_run["nlp"], main_run["lmps"], main_run["cfs"]
+    d = nlp.default_params()
+    B = lmps.shape[0]
+    params = {"p": {**d["p"], "lmp": torch.as_tensor(lmps * 1e-3, device=dev),
+                    "windpower.capacity_factor": torch.as_tensor(cfs, device=dev)},
+              "fixed": d["fixed"]}
+    out = None
+    for kkt in ("auto", "dense"):
+        solver = make_ipm_solver(nlp, IPMOptions(max_iter=300, kkt=kkt), device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = solver(params)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        obj = res.obj.cpu().numpy()
+        check(obj.shape == (B,) and np.all(np.isfinite(obj)), f"[ipm] {kkt}: objectives not finite")
+        st, it, line = _lanes_line(res)
+        err = np.abs(obj[:N_HIGHS] - main_run["ref"]) / np.maximum(np.abs(main_run["ref"]), 1.0)
+        gap = np.abs(obj - main_run["pdlp_obj"]) / np.maximum(np.abs(obj), 1.0)
+        print(f"[ipm] kkt={kkt:6s} B={B} {line} solve {dt * 1e3:.1f} ms "
+              f"solves/s={B / dt:.1f} peak_mem={torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+              f"obj_rel_err_vs_highs({N_HIGHS}) max {err.max():.3e} "
+              f"max_gap_to_batch_pdlp {gap.max():.3e}")
+        check(err.max() <= IPM_RTOL, f"[ipm] {kkt}: objective error {err.max():.3e} > {IPM_RTOL} "
+                                     f"(statuses {st[:N_HIGHS].tolist()})")
+        if kkt == "auto":
+            out = solver, params, int(it.max())
+    return out
+
+
+def phase_ipm_trace(torch, solver, params, max_iters):
+    """One warmed structured B = 366 solve under torch.profiler: idle share,
+    device launches per Newton iteration (all launches of the solve over
+    the slowest lane's iterations, which the batch runs), top ten."""
+    res, _, by_name, total, window = profile_run(
+        torch, lambda: solver(params), f"[ipm-trace] structured B={params['p']['lmp'].shape[0]}")
+    check(bool(torch.isfinite(res.obj).all()), "[ipm-trace] objectives not finite")
+    if by_name:
+        launches = sum(n for n, _ in by_name.values())
+        print(f"[ipm-trace] {launches} device launches over {max_iters} Newton iterations: "
+              f"{launches / max_iters:.1f} per iteration, {total / 1e3 / max_iters:.3f} ms "
+              "device time per iteration")
+
+
+def phase_pdlp1(torch, dev, main_run):
+    """The per-scenario PDLP solver on the first 4 scenarios."""
+    from dispatches_tpu_torch.solvers import PDLPOptions, make_pdlp_solver
+
+    nlp, lp, lmps, cfs = main_run["nlp"], main_run["lp"], main_run["lmps"], main_run["cfs"]
+    d = nlp.default_params()
+    for label, opts, rtol in (
+            ("halpern f32 tol 1e-5", PDLPOptions(tol=1e-5, dtype="float32"), OBJ_RTOL),
+            ("f64 tol 1e-8 polish", PDLPOptions(tol=1e-8, dtype="float64", polish=True), IPM_RTOL)):
+        solver = make_pdlp_solver(nlp, opts, lp_data=lp, device=dev)
+        objs, iters, ms = [], [], []
+        for s in range(4):
+            p = {"p": {**d["p"], "lmp": lmps[s] * 1e-3, "windpower.capacity_factor": cfs[s]},
+                 "fixed": d["fixed"]}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solver(p)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            objs.append(float(res.obj))
+            iters.append(int(res.iters))
+        err = np.abs(np.asarray(objs) - main_run["ref"][:4]) / np.abs(main_run["ref"][:4])
+        print(f"[pdlp1] {label}: iters {iters} solve ms {[round(t, 1) for t in ms]} "
+              f"obj_rel_err_vs_highs max {err.max():.3e}")
+        check(err.max() <= rtol, f"[pdlp1] {label}: objective error {err.max():.3e} > {rtol}")
+
+
+def _storage_lp(torch, T=24):
+    """The storage LP of the repository's verify recipe."""
+    from dispatches_tpu_torch.core.graph import Flowsheet, tshift
+
+    price = np.abs(np.sin(np.arange(T))) * 50 + 10
+    fs = Flowsheet(horizon=T)
+    fs.add_var("charge", lb=0, ub=2)
+    fs.add_var("discharge", lb=0, ub=2)
+    fs.add_var("soc", lb=0, ub=8)
+    fs.add_var("soc0", shape=(), lb=0, ub=8)
+    fs.fix("soc0", 0.0)
+    fs.add_param("price", price)
+    fs.add_eq("soc", lambda v, p: v["soc"] - tshift(v["soc"], v["soc0"])
+              - 0.95 * v["charge"] + v["discharge"] / 0.95)
+    return fs.compile(objective=lambda v, p: torch.sum(p["price"] * (v["discharge"] - v["charge"])),
+                      sense="max")
+
+
+def phase_factory(torch, dev):
+    from dispatches_tpu_torch.core.graph import Flowsheet
+    from dispatches_tpu_torch.solvers import IPMResult, SolverFactory
+
+    nlp = _storage_lp(torch)
+    objs = {}
+    for name in ("ipopt", "cbc"):
+        t0 = time.perf_counter()
+        res = SolverFactory(name, device=dev).solve(nlp, tee=True)
+        torch.cuda.synchronize()
+        objs[name] = float(res.obj)
+        print(f"[factory] {name}: obj {objs[name]:.10g} in {(time.perf_counter() - t0) * 1e3:.1f} ms "
+              "(build included)")
+    rel = abs(objs["cbc"] - objs["ipopt"]) / max(abs(objs["ipopt"]), 1.0)
+    print(f"[factory] ipopt vs cbc relative difference {rel:.3e}")
+    check(rel <= IPM_RTOL, f"[factory] ipopt and cbc disagree: {rel:.3e}")
+    fs = Flowsheet()
+    fs.add_var("x", shape=(), lb=0.0, init=2.0)
+    fs.add_var("y", shape=(), init=2.0)
+    fs.add_eq("hyper", lambda v, p: v["x"] * v["y"] - 1.0)
+    res = SolverFactory("cbc", device=dev).solve(
+        fs.compile(objective=lambda v, p: v["x"] ** 2 + v["y"] ** 2), tee=True)
+    print(f"[factory] cbc on x*y = 1: {type(res).__name__} obj {float(res.obj):.10g}")
+    check(isinstance(res, IPMResult) and abs(float(res.obj) - 2.0) <= 1e-6,
+          "[factory] cbc did not fall back to the IPM on a non-affine model")
+
+
+def phase_optimize(torch, dev):
+    from dispatches_tpu_torch.case_studies.renewables import wind_battery_optimize
+    from dispatches_tpu_torch.solvers import make_lp_data
+
+    for T_opt in (24, 168):
+        params = {"wind_mw": 100, "batt_mw": 10, "capacity_factors": np.full(T_opt, 0.5),
+                  "DA_LMPs": np.where(np.arange(T_opt) % 24 < 12, 5.0, 100.0),
+                  "design_opt": True, "extant_wind": True}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = wind_battery_optimize(T_opt, params, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        nlp = out.nlp
+        ref = highs_objective(torch, nlp, make_lp_data(nlp, device=dev), nlp.default_params(),
+                              f"optimize T={T_opt}")
+        err = abs(float(out.res.obj) - ref) / max(abs(ref), 1.0)
+        print(f"[optimize] T={T_opt} n={nlp.n} NPV={out.npv:.2f} battery_kw={out.battery_power_kw:.3f} "
+              f"converged={out.converged} iterations={int(out.res.iterations)} "
+              f"wall {dt * 1e3:.1f} ms (build included) obj_rel_err_vs_highs {err:.3e}")
+        check(out.converged and err <= IPM_RTOL,
+              f"[optimize] T={T_opt}: converged={out.converged}, objective error {err:.3e}")
+
+
+def phase_ipm_path(torch, dev, main_run):
+    """Phase 4, with the sweep kernels' counts set to 0 before and read
+    after: the interior-point path launches neither."""
+    from dispatches_tpu_torch.kernels import pdhg_sweep as ks
+
+    ks.avg_sweep.launches = 0
+    ks.halpern_sweep.launches = 0
+    t0 = time.perf_counter()
+    phase_entry(torch, dev)
+    solver, params, max_iters = phase_ipm(torch, dev, main_run)
+    phase_ipm_trace(torch, solver, params, max_iters)
+    phase_pdlp1(torch, dev, main_run)
+    phase_factory(torch, dev)
+    phase_optimize(torch, dev)
+    print(f"[phase4] {time.perf_counter() - t0:.1f} s; sweep kernel launches during it: "
+          f"halpern {ks.halpern_sweep.launches}, avg {ks.avg_sweep.launches}")
 
 
 def main():
@@ -564,8 +798,9 @@ def main():
     # the main path runs first, so its launch counts start from zero
     # before any comparison launch
     dev = torch.device("cuda")
-    lp, launches = phase_main_path(torch, dev)
-    report = phase_kernels(torch, lp, dev)
+    main_run, launches = phase_main_path(torch, dev)
+    report = phase_kernels(torch, main_run["lp"], dev)
+    phase_ipm_path(torch, dev, main_run)
 
     replaces = {"halpern": "dispatches_tpu/solvers/pdlp_batch.py:196",
                 "avg": "dispatches_tpu/solvers/pdlp_batch.py:80"}

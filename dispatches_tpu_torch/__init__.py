@@ -6,15 +6,19 @@ imports ``torch``, numpy and scipy only — never JAX and never
 ``dispatches_tpu`` (importing that package would switch JAX's x64 mode
 and compile cache on as a side effect).
 
-Device rule: the solver entry points (``solvers.pdlp.make_lp_data``,
-``solvers.pdlp_batch.make_pdlp_batch_solver`` and the solver it returns)
-run on ``cuda`` unless the caller passes ``device="cpu"``; with no card
-and no ``device=`` they raise instead of carrying on quietly on the CPU.
+Device rule: the entry points (``make_lp_data``, the PDLP and IPM solver
+builders, ``detect_time_structure``, ``make_structured_kkt``,
+``SolverFactory``, ``wind_battery_optimize``, ``entry.entry``) run on
+``cuda`` unless the caller passes ``device="cpu"``; with no card and no
+``device=`` they raise instead of carrying on quietly on the CPU.
 
 Ported so far: the wind+battery batch-PDLP main path (flowsheet graph
 and lowering, the wind/splitter/battery models, the price-taker case
 study, LP data extraction and preconditioning, the batch PDLP solver and
-its two PDHG sweep kernels in ``csrc/pdhg_sweep.cu``).
+its two PDHG sweep kernels in ``csrc/pdhg_sweep.cu``); the interior-point
+path (the IPM with its dense and structured KKT solves,
+``wind_battery_optimize`` and ``entry``); the per-scenario PDLP solver
+and ``SolverFactory``.
 """
 
 import torch

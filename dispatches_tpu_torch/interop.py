@@ -7,7 +7,9 @@ host, so moving them across is a matter of types and devices:
   (numpy leaves, optionally batched) into tensors;
 * :func:`lp_data_from_numpy` turns the JAX ``make_lp_data`` output
   (K, G, lb, ub) into the form the port's ``make_pdlp_batch_solver``
-  takes as ``lp_data``.
+  takes as ``lp_data``;
+* :func:`ipm_start_from_numpy` turns a JAX ``IPMResult``'s ``x_phys`` and
+  ``lam`` into the port's IPM ``x0`` / ``lam0``.
 
 Neither imports JAX: callers pass numpy arrays (``np.asarray`` of a JAX
 array is one).
@@ -31,3 +33,14 @@ def lp_data_from_numpy(data):
     """The JAX ``make_lp_data`` dict as float64 numpy arrays (the port's
     LP-data form)."""
     return {k: np.asarray(data[k], dtype=np.float64) for k in ("K", "G", "lb", "ub")}
+
+
+def ipm_start_from_numpy(x_phys, lam, device):
+    """An IPM warm start carried across: ``x_phys`` and ``lam`` of a JAX
+    ``IPMResult`` (numpy, one row per lane or one vector) as the port's
+    ``solve(params, x0, lam0)`` arguments, float64 on ``device``.
+    ``x_phys`` is physical, as ``x0`` is (never feed ``IPMResult.x``)."""
+    def t(a):
+        # a copy: numpy views of JAX arrays are read-only
+        return torch.tensor(np.array(a, dtype=np.float64), device=device)
+    return t(x_phys), t(lam)

@@ -34,6 +34,8 @@ from dispatches_tpu_torch.solvers.pdlp import (
     LPResult,
     PDLPOptions,
     START_EXACT,
+    _lane_axes,
+    _lp_rhs,
     _params_on,
     _power_norm,
     _precision_plan,
@@ -52,18 +54,6 @@ class BatchPDLPOptions(PDLPOptions):
     lanes_per_block: int | None = None  # CUDA kernel: scenario lanes per
     #                           thread block; None: chosen from the batch
     #                           (kernels/pdhg_sweep.py:default_lanes)
-
-
-def _tree_map(fn, tree, *rest):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
-    return fn(tree, *rest)
-
-
-def _tree_leaves(tree):
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in _tree_leaves(v)]
-    return [tree]
 
 
 def make_pdlp_batch_solver(nlp, options: BatchPDLPOptions = BatchPDLPOptions(),
@@ -246,14 +236,6 @@ def make_pdlp_batch_solver(nlp, options: BatchPDLPOptions = BatchPDLPOptions(),
                 rounds = rounds + need.to(torch.int32)
             return xb, zb, pr, du, gap, rounds
 
-    def _rhs_one(params):
-        x0 = torch.zeros(n, dtype=f64, device=dev)
-        c = torch.func.grad(lambda x: nlp.objective(x, params))(x0)
-        q = -nlp.eq(x0, params)
-        h = -nlp.ineq(x0, params)
-        b = torch.cat([q, h]) if m_in else q
-        return (c * dc_j).to(dtype), (b * dr_j).to(dtype)
-
     def _restart_and_track(s, it, e_c, xc, zc, k, artificial_floor):
         """The between-sweep bookkeeping both algorithms share: PDLP
         sufficient-decay + artificial restarts, primal-weight update,
@@ -347,28 +329,12 @@ def make_pdlp_batch_solver(nlp, options: BatchPDLPOptions = BatchPDLPOptions(),
     def solver(batched_params, start=None) -> LPResult:
         # batch axis = any leaf with one extra leading dim vs defaults;
         # broadcast leaves map with in_dims None
-        defaults = nlp.default_params()
         params = _params_on(batched_params, dev)
-
-        def axis_of(leaf, default_leaf):
-            extra = leaf.ndim - np.ndim(default_leaf)
-            if extra not in (0, 1):
-                raise ValueError(
-                    f"parameter leaf has {extra} extra leading dims vs the "
-                    "default; expected 0 (broadcast) or 1 (batch axis)"
-                )
-            return 0 if extra == 1 else None
-
-        axes = _tree_map(axis_of, params, defaults)
-        sizes = {leaf.shape[0] for leaf, ax in zip(_tree_leaves(params),
-                                                   _tree_leaves(axes))
-                 if ax == 0}
-        if not sizes:
+        axes, B = _lane_axes(nlp, params)
+        if B is None:
             raise ValueError("no leaf carries a leading batch axis")
-        if len(sizes) > 1:
-            raise ValueError(f"inconsistent batch sizes: {sorted(sizes)}")
-        B = sizes.pop()
-        c, b = torch.func.vmap(_rhs_one, in_dims=(axes,))(params)
+        c, b = torch.func.vmap(lambda p: _lp_rhs(nlp, p, dc_j, dr_j, dtype),
+                               in_dims=(axes,))(params)
         c, b = c.contiguous(), b.contiguous()
 
         if start is None:

@@ -176,6 +176,54 @@ def test_make_lp_data_needs_cuda_or_explicit_cpu(pair):
         t_pdlp.make_lp_data(tn)
 
 
+def _entry_points():
+    """Each entry point of the IPM slice as a call with ``device`` left to
+    its default (``cuda``)."""
+    from dispatches_tpu_torch.entry import _build_nlp, entry
+    from dispatches_tpu_torch.solvers import (
+        SolverFactory,
+        make_ipm_solver,
+        make_pdlp_solver,
+        solve_nlp,
+    )
+    from dispatches_tpu_torch.solvers.structured import (
+        detect_time_structure,
+        make_structured_kkt,
+    )
+
+    def optimize(**kw):
+        return t_lmp.wind_battery_optimize(T, {**_params_in(True), "max_iter": 2}, **kw)
+
+    nlp = _build_nlp()
+    ts = detect_time_structure(nlp, device="cpu")
+    return {
+        "make_ipm_solver": lambda **kw: make_ipm_solver(nlp, **kw),
+        "solve_nlp": lambda **kw: solve_nlp(nlp, **kw),
+        "detect_time_structure": lambda **kw: detect_time_structure(nlp, **kw),
+        "make_structured_kkt": lambda **kw: make_structured_kkt(
+            ts, nlp.n + nlp.m_ineq, nlp.m_eq + nlp.m_ineq, **kw),
+        "make_pdlp_solver": lambda **kw: make_pdlp_solver(nlp, **kw),
+        "SolverFactory(ipopt)": lambda **kw: SolverFactory("ipopt", **kw),
+        "SolverFactory(cbc)": lambda **kw: SolverFactory("cbc", **kw),
+        "wind_battery_optimize": optimize,
+        "entry": lambda **kw: entry(**kw),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "make_ipm_solver", "solve_nlp", "detect_time_structure", "make_structured_kkt",
+    "make_pdlp_solver", "SolverFactory(ipopt)", "SolverFactory(cbc)",
+    "wind_battery_optimize", "entry"])
+def test_new_entry_points_need_cuda_or_explicit_cpu(name):
+    """Without a card every entry point raises unless given device="cpu",
+    and with it each one runs on the CPU."""
+    fn = _entry_points()[name]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn()
+    assert fn(device="cpu") is not None
+
+
 @pytest.mark.parametrize("env,value", [
     ("PDLP_ALGO", "avg"), ("PDLP_ALGO", "HALPERN"), ("PDLP_ALGO", "junk"),
     ("PDLP_PRECISION", "bf16x-f32"), ("PDLP_PRECISION", "junk"),
@@ -249,6 +297,11 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "dispatches_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {f"dispatches_tpu_torch/{f}" for f in (
+        "entry.py", "interop.py", "solvers/ipm.py", "solvers/structured.py",
+        "solvers/factory.py", "solvers/pdlp.py",
+        "case_studies/renewables/wind_battery_lmp.py")} <= names
     bad = [(str(f.relative_to(ROOT)), mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "dispatches_tpu")]
     assert bad == []
