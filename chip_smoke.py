@@ -18,8 +18,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    shapes (m 218, n 193, k 40; B = 4096 and a ragged B = 366), and on a
    dense, an empty-row-and-column, a dense too large for shared memory
    and a wide operator, so that every kernel family runs; then time the
-   kernels against their plain versions in turns with CUDA events (f32 at
-   B = 366, 1024, 4096; f64 and bf16 at 4096) and sweep lanes per block;
+   kernels against their plain versions in turns with CUDA events (every
+   tier at B = 366, 1024 and 4096) and sweep lanes per block;
 4. the interior-point path (float64; it runs no hand-written kernel, and
    the sweep kernels' counts are read around it to show so):
    ``[entry]`` ``entry()`` over its 8 LMP lanes, status-0 objectives
@@ -31,14 +31,28 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    tol 1e-8 with the polish); ``[factory]`` ``SolverFactory("ipopt")``
    and ``("cbc")`` on a storage LP, and ``cbc``'s IPM fallback on a
    non-affine model; ``[optimize]`` ``wind_battery_optimize`` at T = 24
-   and T = 168 with the battery size free, against HiGHS.
+   and T = 168 with the battery size free, against HiGHS;
+5. the serve path (``SolveService`` over ``ExecutionPlan``, float64 PDLP
+   with a lane axis; no hand-written kernel, the sweep kernels' counts are
+   read around it): ``[serve-demo]`` ``python -m dispatches_tpu_torch.serve
+   --stats``; ``[serve-golden]`` the fake-clock ``--stats`` golden of
+   tests/test_obs.py on the card (reported, not required); ``[serve]`` the
+   366 scenarios one request at a time, twice, max_batch 64, tol 1e-8,
+   warm starts and the predictor on, 16 within 1e-6 of HiGHS;
+   ``[serve-default]`` a default ``SolveService()`` on the real clock;
+   ``[serve-ipm]`` ``entry()``'s 8 lanes through an IPM bucket, statuses
+   and objectives as ``[entry]``; ``[plan]`` a poisoned lane isolated with
+   bitwise batchmates, FIFO against ready fencing bitwise;
+   ``[serve-trace]`` one warmed 64-lane batch under torch.profiler.
 
-The line before the last is a JSON summary of the kernels; the last line
+Phase 3 times every kernel tier at B = 366, 1024 and 4096.  The line
+before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -331,7 +345,7 @@ def phase_kernels(torch, lp, dev):
         # takes, with the operator packed once as the solver packs it
         times = {}
         for tier, dtype, low, _ in tiers:
-            for B in ((N_SCENARIOS, *PEAK_BATCHES) if tier == "f32" else PEAK_BATCHES[-1:]):
+            for B in (N_SCENARIOS, *PEAK_BATCHES):
                 const, lane = _sweep_inputs(torch, Ah, lb, ub, m_eq, B, dtype, dev, seed=B)
                 args = _args(algo, const, lane)
                 packed = ks.pack_operator(const["Ah"])
@@ -619,6 +633,7 @@ def phase_entry(torch, dev):
     err = np.abs(obj.cpu().numpy()[ok] - ref) / np.maximum(np.abs(ref), 1.0)
     print(f"[entry] status-0 lanes {ok.tolist()}: obj_rel_err_vs_highs max {err.max():.3e}")
     check(err.max() <= IPM_RTOL, f"[entry] objective error {err.max():.3e} > {IPM_RTOL}")
+    return {"nlp": nlp, "params": batched, "status": st, "obj": obj.cpu().numpy()}
 
 
 def phase_ipm(torch, dev, main_run):
@@ -775,13 +790,311 @@ def phase_ipm_path(torch, dev, main_run):
     ks.avg_sweep.launches = 0
     ks.halpern_sweep.launches = 0
     t0 = time.perf_counter()
-    phase_entry(torch, dev)
+    entry_run = phase_entry(torch, dev)
     solver, params, max_iters = phase_ipm(torch, dev, main_run)
     phase_ipm_trace(torch, solver, params, max_iters)
     phase_pdlp1(torch, dev, main_run)
     phase_factory(torch, dev)
     phase_optimize(torch, dev)
     print(f"[phase4] {time.perf_counter() - t0:.1f} s; sweep kernel launches during it: "
+          f"halpern {ks.halpern_sweep.launches}, avg {ks.avg_sweep.launches}")
+    return entry_run
+
+
+# ---------------------------------------------------------------------
+# phase 5: the serve path (SolveService over ExecutionPlan)
+# ---------------------------------------------------------------------
+
+#: [serve]'s max_wait_ms: long enough that batches close at max_batch (64)
+#: or at flush_all.  With the default 10 ms every one-lane solve outlasts
+#: the wait, and the service dispatches one lane per batch ([serve-default])
+SERVE_WAIT_MS = 60_000.0
+N_DEFAULT = 16           # [serve-default]: requests through SolveService()
+
+
+def _flagship_params(nlp, lmps, cfs, s):
+    d = nlp.default_params()
+    return {"p": {**d["p"], "lmp": lmps[s] * 1e-3, "windpower.capacity_factor": cfs[s]},
+            "fixed": d["fixed"]}
+
+
+def _pct(a):
+    p50, p95, p99 = np.percentile(a, (50, 95, 99))
+    return f"p50 {p50:.1f} / p95 {p95:.1f} / p99 {p99:.1f} ms"
+
+
+def serve_demo(torch):
+    """``python -m dispatches_tpu_torch.serve --stats`` with its defaults,
+    on the card."""
+    from dispatches_tpu_torch.serve.__main__ import main as serve_main
+
+    t0 = time.perf_counter()
+    rc = serve_main(["--stats"])
+    torch.cuda.synchronize()
+    print(f"[serve-demo] --stats (24 requests a bucket, max-batch 8, horizons 8 and 12): "
+          f"rc {rc}, {time.perf_counter() - t0:.1f} s")
+    check(rc == 0, "[serve-demo] not every request finished DONE")
+
+
+def serve_golden(torch):
+    """tests/test_obs.py's fake-clock recipe on the card, against the
+    golden stats text (reported, not required: cuBLAS may sum in another
+    order than the CPU and move an iteration count)."""
+    from dispatches_tpu_torch.serve import ServeOptions, SolveService
+    from dispatches_tpu_torch.serve.__main__ import _arbitrage_nlp
+
+    ticks = {"t": 0.0}
+
+    def clock():
+        ticks["t"] += 0.25e-3
+        return ticks["t"]
+
+    svc = SolveService(ServeOptions(max_batch=4, max_wait_ms=1e9), clock=clock)
+    nlp = _arbitrage_nlp(6)
+    d = nlp.default_params()
+    rng = np.random.default_rng(0)
+    hs = [svc.submit(nlp, {"p": {**d["p"], "price": 30.0 + 10.0 * rng.standard_normal(6)},
+                           "fixed": d["fixed"]}, solver="pdlp") for _ in range(6)]
+    svc.flush_all()
+    check(all(h.result().status == "DONE" for h in hs), "[serve-golden] a request failed")
+    got = svc.format_stats() + "\n"
+    want = (ROOT / "tests" / "data" / "serve_stats_golden.txt").read_text()
+    if got == want:
+        print("[serve-golden] format_stats() equals tests/data/serve_stats_golden.txt byte for byte")
+        return
+    print("[serve-golden] format_stats() differs from tests/data/serve_stats_golden.txt "
+          "(reported, not required):")
+    for a, b in zip(want.splitlines(), got.splitlines()):
+        if a != b:
+            print(f"[serve-golden]   golden: {a}")
+            print(f"[serve-golden]   card:   {b}")
+    print(f"[serve-golden] per-lane iterations {[int(h.result().result.iters) for h in hs]}, "
+          f"start kinds {[int(h.result().result.start_kind) for h in hs]}")
+
+
+def serve_default(torch, main_run):
+    """A default SolveService() on the real clock, requests one at a time."""
+    from dispatches_tpu_torch.serve import SolveService
+
+    nlp, lmps, cfs = main_run["nlp"], main_run["lmps"], main_run["cfs"]
+    svc = SolveService()
+    t0 = time.perf_counter()
+    hs = [svc.submit(nlp, _flagship_params(nlp, lmps, cfs, s)) for s in range(N_DEFAULT)]
+    svc.flush_all()
+    dt = time.perf_counter() - t0
+    res = [h.result() for h in hs]
+    check(all(r.status == "DONE" for r in res), "[serve-default] a request failed")
+    m = svc.metrics()
+    b = next(iter(m["buckets"].values()))
+    print(f"[serve-default] SolveService() (max_wait_ms 10), {N_DEFAULT} requests one at a time: "
+          f"{dt:.2f} s = {N_DEFAULT / dt:.1f} requests/s, {m['batches']} batches @ lanes "
+          f"{b['lane_counts']}, latency {_pct([r.latency_ms for r in res])}, "
+          f"iterations mean {np.mean([int(r.result.iters) for r in res]):.1f}")
+
+
+def serve_full(torch, main_run):
+    """The 366 scenarios one request at a time, twice, through a service
+    with the default options but ``max_wait_ms`` (float64 PDLP at tol 1e-8,
+    max_batch 64, warm starts and the predictor on)."""
+    from dispatches_tpu_torch.obs import registry, trace
+    from dispatches_tpu_torch.serve import ServeOptions, SolveService
+
+    nlp, lmps, cfs, ref = main_run["nlp"], main_run["lmps"], main_run["cfs"], main_run["ref"]
+    svc = SolveService(ServeOptions.from_env(max_wait_ms=SERVE_WAIT_MS))
+    refits = registry.counter("predict.refits")
+    trace.enable(True)  # serve.batch spans: each batch's dispatch -> fence
+    for rnd in (1, 2):
+        m0 = svc.metrics()
+        r0 = refits.total()
+        trace.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        hs, sub_ms = [], []
+        for s in range(N_SCENARIOS):
+            t_s = time.perf_counter()
+            hs.append(svc.submit(nlp, _flagship_params(nlp, lmps, cfs, s)))
+            sub_ms.append((time.perf_counter() - t_s) * 1e3)
+        svc.flush_all()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        res = [h.result() for h in hs]
+        evts = trace.events()
+        spans = [e for e in evts if e["name"] == "serve.batch"]
+        # dispatch-ahead: what is left to wait for when submit returns
+        plan_ms = {k: [e["dur"] / 1e3 for e in evts if e["name"] == k]
+                   for k in ("plan.stage", "plan.submit", "plan.fence")}
+        # submits that did not flush a batch: the host's per-request cost
+        flushing = np.arange(63, N_SCENARIOS, 64)
+        quiet = np.delete(np.asarray(sub_ms), flushing)
+        slowest = int(np.delete(np.arange(N_SCENARIOS), flushing)[np.argmax(quiet)])
+        check(all(r.status == "DONE" for r in res), f"[serve] round {rnd}: a request failed")
+        objs = np.asarray([r.obj for r in res])
+        check(objs.shape == (N_SCENARIOS,) and np.all(np.isfinite(objs)),
+              f"[serve] round {rnd}: objectives not finite")
+        err = np.abs(objs[:N_HIGHS] - ref) / np.maximum(np.abs(ref), 1.0)
+        iters = np.asarray([int(r.result.iters) for r in res])
+        kinds = np.bincount([int(r.result.start_kind) for r in res], minlength=4)
+        m = svc.metrics()
+        b = next(iter(m["buckets"].values()))
+        ws, ws0 = m["warm_start"], m0["warm_start"]
+        print(f"[serve] round {rnd}: {N_SCENARIOS} requests in {dt:.2f} s = "
+              f"{N_SCENARIOS / dt:.1f} requests/s, latency {_pct([r.latency_ms for r in res])}; "
+              f"{m['batches'] - m0['batches']} batches ({m['batches']} in all @ lanes "
+              f"{b['lane_counts']}, occupancy {b['occupancy']}), compile count "
+              f"{m['compile_count']}; starts cold/exact/neighbor/predicted = "
+              f"{kinds[0]}/{kinds[1]}/{kinds[2]}/{kinds[3]}, mispredicts "
+              f"{ws['mispredicts'] - ws0['mispredicts']}, predictor refits {refits.total() - r0:.0f}; "
+              f"PDHG iterations mean {iters.mean():.1f} max {iters.max()}, "
+              f"{sum(not bool(r.result.converged) for r in res)} lanes unconverged; "
+              f"peak_mem {(torch.cuda.max_memory_allocated() - mem0) / 2**20:.1f} MiB above "
+              f"the round's start; obj_rel_err_vs_highs({N_HIGHS}) max {err.max():.3e}")
+        # requests go out in order and each batch takes the oldest 64
+        per = [(e["dur"] / 1e3, e["args"]["live"],
+                int(iters[64 * k:64 * k + e["args"]["live"]].max()))
+               for k, e in enumerate(spans)]
+        bucket = next(iter(svc._buckets.values()))
+        print(f"[serve] round {rnd} batches (dispatch->fence ms, live lanes, max iterations): "
+              + ", ".join(f"({ms:.0f}, {n}, {it})" for ms, n, it in per)
+              + f"; ladder degraded: predictor->k-NN {bucket.predict_fallback}, "
+              f"warm->cold {bucket.warm_fallback}; submits that flushed nothing: mean "
+              f"{quiet.mean():.2f} ms, max {quiet.max():.1f} ms (request {slowest}); "
+              + ", ".join(f"{k} mean {np.mean(v):.2f} ms" for k, v in plan_ms.items()))
+        check(err.max() <= IPM_RTOL, f"[serve] round {rnd}: objective error {err.max():.3e} "
+                                     f"> {IPM_RTOL}")
+    trace.enable(False)
+
+
+def serve_ipm(torch, entry_run):
+    """entry()'s 8 LMP lanes through the service's IPM bucket, against
+    phase 4's direct solve."""
+    from dispatches_tpu_torch.serve import ServeOptions, SolveService
+
+    nlp, batched = entry_run["nlp"], entry_run["params"]
+    svc = SolveService(ServeOptions(max_batch=8, max_wait_ms=1e9))
+    lmp = np.asarray(batched["p"]["lmp"])
+    plist = [{"p": {**batched["p"], "lmp": lmp[i]}, "fixed": batched["fixed"]} for i in range(8)]
+    t0 = time.perf_counter()
+    res = svc.solve_many(nlp, plist, solver="ipm", options={"max_iter": 60})
+    dt = time.perf_counter() - t0
+    st = np.asarray([int(r.result.status) for r in res])
+    obj = np.asarray([r.obj for r in res])
+    ok = entry_run["status"] == 0
+    err = np.abs(obj[ok] - entry_run["obj"][ok]) / np.maximum(np.abs(entry_run["obj"][ok]), 1.0)
+    print(f"[serve-ipm] 8 lanes, max_iter 60, {dt * 1e3:.1f} ms: status {st.tolist()} "
+          f"(phase 4: {entry_run['status'].tolist()}), status-0 objectives vs phase 4 max "
+          f"{err.max():.3e}")
+    check(np.array_equal(st, entry_run["status"]), "[serve-ipm] statuses differ from [entry]")
+    check(err.max() <= 1e-9, f"[serve-ipm] objectives differ from [entry]: {err.max():.3e}")
+
+
+def plan_checks(torch, main_run):
+    """A poisoned lane at the ``solver`` fault site, and FIFO against
+    ready fencing over uneven widths."""
+    from dispatches_tpu_torch.faults import inject as faults
+    from dispatches_tpu_torch.obs import registry
+    from dispatches_tpu_torch.plan import ExecutionPlan, PlanOptions
+    from dispatches_tpu_torch.serve import ServeOptions, SolveService
+    from dispatches_tpu_torch.solvers import PDLPOptions, make_pdlp_solver
+
+    nlp, lp, lmps, cfs = main_run["nlp"], main_run["lp"], main_run["lmps"], main_run["cfs"]
+    plist = [_flagship_params(nlp, lmps, cfs, s) for s in range(8)]
+
+    def run(scenario):
+        svc = SolveService(ServeOptions(max_batch=8, max_wait_ms=1e9, warm_start=False))
+        faults.arm(scenario)
+        try:
+            hs = [svc.submit(nlp, p) for p in plist]
+            svc.flush_all()
+            return [h.result() for h in hs]
+        finally:
+            faults.reset()
+
+    clean = run(None)
+    retries = registry.counter("plan.retries")
+    r0 = retries.total()
+    t0 = time.perf_counter()
+    faulted = run("solver,poison_ids=6")  # request ids count from 1: lane 5
+    dt = time.perf_counter() - t0
+    sts = [r.status for r in faulted]
+    same = all(f.obj == c.obj for f, c in zip(faulted, clean) if f.status == "DONE")
+    print(f"[plan] fault 'solver,poison_ids=6' on 8 lanes: statuses {sts}, plan.retries "
+          f"{retries.total() - r0:.0f}, {dt:.2f} s; DONE lanes bitwise equal to the unfaulted "
+          f"run: {same}")
+    check(sts == ["DONE"] * 5 + ["ERROR"] + ["DONE"] * 2, "[plan] poisoned lane not isolated")
+    check(same, "[plan] innocent lanes differ from the unfaulted run")
+
+    solver = make_pdlp_solver(nlp, PDLPOptions(tol=1e-8, dtype="float64"), lp_data=lp,
+                              device="cuda")
+    params = [_flagship_params(nlp, lmps, cfs, s) for s in range(17)]
+
+    def arm(schedule):
+        plan = ExecutionPlan(PlanOptions(inflight=2, schedule=schedule))
+        prog = plan.program(solver, label="plan.parity", vmap_axes=0)
+        tickets, s = [], 0
+        for width in (5, 3, 8, 1):
+            staged = plan.stage(plan.stack(params[s:s + width]), lanes=width, donate=False)
+            tickets.append(plan.submit(prog, (staged,), n_live=width, lanes=width))
+            s += width
+        return [plan.collect(t) for t in tickets]
+
+    fifo, ready = arm("fifo"), arm("ready")
+    bitwise = all(torch.equal(getattr(a, f), getattr(b, f)) for a, b in zip(fifo, ready)
+                  for f in ("x", "z", "obj", "iters"))
+    print(f"[plan] fifo vs ready over widths 5, 3, 8, 1: ticket results bitwise equal: {bitwise}")
+    check(bitwise, "[plan] fifo and ready ticket results differ")
+
+
+def serve_trace(torch, main_run):
+    """One warmed 64-lane batch of the flagship (cold starts) under
+    torch.profiler."""
+    from dispatches_tpu_torch.serve import ServeOptions, SolveService
+
+    nlp, lmps, cfs = main_run["nlp"], main_run["lmps"], main_run["cfs"]
+    svc = SolveService(ServeOptions(max_wait_ms=SERVE_WAIT_MS, warm_start=False))
+    plist = [_flagship_params(nlp, lmps, cfs, s) for s in range(64)]
+
+    def run():
+        hs = [svc.submit(nlp, p) for p in plist]
+        svc.flush_all()
+        return [h.result() for h in hs]
+
+    run()
+    res, _, by_name, total, window = profile_run(torch, run, "[serve-trace] 64-lane batch")
+    check(all(r.status == "DONE" for r in res), "[serve-trace] a request failed")
+    iters = max(int(r.result.iters) for r in res)
+    if by_name:
+        launches = sum(n for n, _ in by_name.values())
+        checks = math.ceil(iters / K_STEPS)
+        print(f"[serve-trace] {launches} device launches over {checks} PDHG check intervals "
+              f"(slowest lane {iters} iterations): {launches / checks:.1f} per interval, "
+              f"{total / 1e3 / checks:.3f} ms device time per interval")
+
+
+def phase_serve_path(torch, dev, main_run, entry_run):
+    """Phase 5, with the sweep kernels' counts set to 0 before and read
+    after: the serve path runs the per-scenario solver and launches
+    neither."""
+    from dispatches_tpu_torch.kernels import pdhg_sweep as ks
+
+    ks.avg_sweep.launches = 0
+    ks.halpern_sweep.launches = 0
+    # the earlier phases' garbage is collected here, not inside a timed
+    # serve round
+    t0 = time.perf_counter()
+    freed = gc.collect()
+    print(f"[phase5] gc.collect() freed {freed} objects in {time.perf_counter() - t0:.2f} s; "
+          f"{len(gc.get_objects())} objects tracked")
+    t0 = time.perf_counter()
+    serve_demo(torch)
+    serve_golden(torch)
+    serve_full(torch, main_run)
+    serve_default(torch, main_run)
+    serve_ipm(torch, entry_run)
+    plan_checks(torch, main_run)
+    serve_trace(torch, main_run)
+    print(f"[phase5] {time.perf_counter() - t0:.1f} s; sweep kernel launches during it: "
           f"halpern {ks.halpern_sweep.launches}, avg {ks.avg_sweep.launches}")
 
 
@@ -800,7 +1113,8 @@ def main():
     dev = torch.device("cuda")
     main_run, launches = phase_main_path(torch, dev)
     report = phase_kernels(torch, main_run["lp"], dev)
-    phase_ipm_path(torch, dev, main_run)
+    entry_run = phase_ipm_path(torch, dev, main_run)
+    phase_serve_path(torch, dev, main_run, entry_run)
 
     replaces = {"halpern": "dispatches_tpu/solvers/pdlp_batch.py:196",
                 "avg": "dispatches_tpu/solvers/pdlp_batch.py:80"}

@@ -8,17 +8,20 @@ and compile cache on as a side effect).
 
 Device rule: the entry points (``make_lp_data``, the PDLP and IPM solver
 builders, ``detect_time_structure``, ``make_structured_kkt``,
-``SolverFactory``, ``wind_battery_optimize``, ``entry.entry``) run on
-``cuda`` unless the caller passes ``device="cpu"``; with no card and no
-``device=`` they raise instead of carrying on quietly on the CPU.
+``SolverFactory``, ``wind_battery_optimize``, ``entry.entry``,
+``SolveService``, ``ExecutionPlan`` via ``PlanOptions.device``,
+``learn.fit``) run on ``cuda`` unless the caller passes ``device="cpu"``;
+with no card and no ``device=`` they raise instead of carrying on quietly
+on the CPU.
 
 Ported so far: the wind+battery batch-PDLP main path (flowsheet graph
 and lowering, the wind/splitter/battery models, the price-taker case
 study, LP data extraction and preconditioning, the batch PDLP solver and
 its two PDHG sweep kernels in ``csrc/pdhg_sweep.cu``); the interior-point
 path (the IPM with its dense and structured KKT solves,
-``wind_battery_optimize`` and ``entry``); the per-scenario PDLP solver
-and ``SolverFactory``.
+``wind_battery_optimize`` and ``entry``); the PDLP solver with an
+optional lane axis and ``SolverFactory``; the serve path (``serve``,
+``plan``, ``learn``, ``obs``, ``faults``).
 """
 
 import torch

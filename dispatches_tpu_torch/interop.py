@@ -9,7 +9,9 @@ host, so moving them across is a matter of types and devices:
   (K, G, lb, ub) into the form the port's ``make_pdlp_batch_solver``
   takes as ``lp_data``;
 * :func:`ipm_start_from_numpy` turns a JAX ``IPMResult``'s ``x_phys`` and
-  ``lam`` into the port's IPM ``x0`` / ``lam0``.
+  ``lam`` into the port's IPM ``x0`` / ``lam0``;
+* :func:`predictor_from_numpy` turns a JAX ``StartPredictor``'s numpy
+  params into the port's ``learn.predictor.forward`` weights.
 
 Neither imports JAX: callers pass numpy arrays (``np.asarray`` of a JAX
 array is one).
@@ -44,3 +46,10 @@ def ipm_start_from_numpy(x_phys, lam, device):
         # a copy: numpy views of JAX arrays are read-only
         return torch.tensor(np.array(a, dtype=np.float64), device=device)
     return t(x_phys), t(lam)
+
+
+def predictor_from_numpy(params, device):
+    """A JAX ``StartPredictor.params`` dict (numpy float32) as the port's
+    predictor weights: float32 tensors on ``device``, same keys."""
+    return {k: torch.tensor(np.array(v, dtype=np.float32), device=device)
+            for k, v in params.items()}

@@ -1,0 +1,14 @@
+"""The execution-plan layer of the port: one device, bounded
+dispatch-ahead batching, retries and lane bisection for every solve path
+(see :mod:`dispatches_tpu_torch.plan.execution`)."""
+
+from dispatches_tpu_torch.plan.execution import (
+    ExecutionPlan,
+    PlanError,
+    PlanOptions,
+    PlanProgram,
+    PlanTicket,
+)
+
+__all__ = ["ExecutionPlan", "PlanError", "PlanOptions", "PlanProgram",
+           "PlanTicket"]

@@ -1,0 +1,773 @@
+"""``ExecutionPlan``: the one dispatch path for every solve batch
+(counterpart of ``dispatches_tpu/plan/execution.py``).
+
+One plan = one device plus one dispatch pipeline:
+
+* **placement** — every staged leaf lands on ``PlanOptions.device``
+  (``cuda`` unless the caller asks for the CPU).  The JAX package's
+  scenario mesh (``mesh``, ``devices > 1``) and its adaptive in-flight
+  depth controller (``inflight_max``) are not ported yet: asking for
+  either raises ``NotImplementedError`` (``ROADMAP.md`` queue 1,
+  item 7).
+* **programs** — ``program(fn, ...)`` wraps a kernel that is already
+  lane-batched (the port's solvers take a lane axis themselves, where
+  the JAX package vmaps a per-scenario function).  ``vmap_axes`` is kept
+  as the description of which arguments carry the lane axis (0) and
+  which are shared (None).  ``PlanProgram.compiles`` counts the distinct
+  argument signatures a program has run — what ``jax.jit`` would have
+  compiled — so the serve layer's compile counts equal the JAX
+  package's.
+* **donation** — torch has none; ``donate`` stays an option with the
+  JAX package's contract: ``stage(donate=True)`` copies a caller-owned
+  tensor, so a program may update the staged buffers in place without
+  touching anything the caller holds.
+* **dispatch-ahead** — the number of dispatched-but-unfenced batches is
+  bounded by ``PlanOptions.inflight``.  ``submit`` records a CUDA event
+  after the program; ``collect``/``drain`` fence on it.  The port's
+  solvers read an "any lane active" flag on the host once per check, so
+  ``submit`` returns only when a solve is nearly done: dispatch-ahead
+  overlaps host staging with the tail of the previous batch, no more.
+* **scheduling** — ``"fifo"`` (oldest first) or ``"ready"``, which
+  queries each ticket's event and fences whichever batch completed
+  first, falling back to FIFO when nothing is ready or there is no
+  probe (a CPU plan records no event).  Per-ticket results, recovery and
+  the fence-time ``on_done`` contract (run exactly once, serialized,
+  after the ticket completes) are the same in both modes.
+
+The fence path holds the window lock only to pop the chosen ticket: the
+device wait, recovery and ``on_done`` run outside it, so a fence
+serializes other fencers, never submitters, and an ``on_done`` that
+re-submits cannot deadlock.
+
+When tracing is on, the plan emits the batch lifecycle as retroactive
+``plan.stage`` / ``plan.submit`` / ``plan.fence`` / ``plan.dispatch``
+spans stamped with the plan id and the batch's sequence number.
+
+The plan is also the batch **failure domain**: a dispatch or fence error
+is wrapped into a :class:`PlanError` carried on the ticket.  With a
+``restage`` callback the plan retries the whole batch with capped
+exponential backoff, then lane-bisects until the guilty lanes are
+isolated; innocents get real results, guilty lanes are NaN-filled and
+named in ``PlanError.guilty``.  ``plan.retries`` counts every recovery
+re-dispatch.  The fault sites (``plan.stage`` / ``plan.submit`` /
+``plan.fence`` / ``solver``) sit behind one cached ``armed()`` branch.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Any, Callable, Deque, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from dispatches_tpu_torch import resolve_device
+from dispatches_tpu_torch.analysis.flags import flag_name
+from dispatches_tpu_torch.analysis.runtime import ProgramCounter, sanitized_lock
+from dispatches_tpu_torch.faults import inject as _faults
+from dispatches_tpu_torch.obs import registry as obs_registry
+from dispatches_tpu_torch.obs import trace as obs_trace
+from dispatches_tpu_torch.utils.tree import tree_leaves, tree_map
+
+__all__ = ["PlanOptions", "PlanProgram", "PlanTicket", "PlanError",
+           "ExecutionPlan"]
+
+#: exponential backoff between batch retries is capped here so a deep
+#: retry budget cannot stall the fence for seconds
+_BACKOFF_CAP_MS = 250.0
+
+#: an injected ``hang_s`` wedge on a REAL clock sleeps at most this
+#: long (virtual clocks advance the full duration instead)
+_HANG_SLEEP_CAP_S = 2.0
+
+_NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1, item 7: the "
+               "execution layer's mesh and adaptive depth controller)")
+
+
+@dataclass(frozen=True)
+class PlanOptions:
+    """Placement + pipeline knobs for one :class:`ExecutionPlan` (the
+    JAX package's fields, plus ``device``)."""
+
+    #: dispatch-ahead window: max batches dispatched but not yet fenced.
+    inflight: int = 2
+    #: scenario-mesh device count in the JAX package; > 1 raises here.
+    devices: Optional[int] = None
+    #: explicit device mesh in the JAX package; raises here.
+    mesh: Optional[object] = None
+    #: mesh axis name (kept for the JAX package's signature).
+    axis: str = "scenario"
+    #: default donation policy for ``program()``.
+    donate: bool = True
+    #: full-batch retry budget before lane bisection (needs ``restage``).
+    max_retries: int = 2
+    #: base backoff between batch retries in milliseconds, doubled per
+    #: attempt and capped at :data:`_BACKOFF_CAP_MS`.
+    retry_backoff_ms: float = 5.0
+    #: fence order: ``"fifo"`` or ``"ready"``.
+    schedule: str = "fifo"
+    #: the JAX package's adaptive depth controller bound; raises here.
+    inflight_max: Optional[int] = None
+    #: memory budget of that controller (kept for the signature).
+    mem_budget_bytes: Optional[int] = None
+    #: fence watchdog: bound every blocking fence to this many ms of the
+    #: plan's injectable clock (None = unbounded).
+    fence_timeout_ms: Optional[float] = None
+    #: where staged batches live: ``cuda`` unless given (the port's
+    #: device rule, through ``resolve_device``).
+    device: Optional[object] = None
+
+    def __post_init__(self):
+        if self.schedule not in ("fifo", "ready"):
+            raise ValueError(
+                f"PlanOptions.schedule must be 'fifo' or 'ready', "
+                f"got {self.schedule!r}")
+
+    @classmethod
+    def from_env(cls, **overrides) -> "PlanOptions":
+        """Defaults with ``DISPATCHES_TPU_PLAN_*`` env overrides applied
+        (the JAX package's names)."""
+        env = {}
+        raw = os.environ.get(flag_name("PLAN_INFLIGHT"), "")
+        if raw:
+            env["inflight"] = int(raw)
+        raw = os.environ.get(flag_name("PLAN_DEVICES"), "")
+        if raw:
+            env["devices"] = int(raw)
+        raw = os.environ.get(flag_name("PLAN_MAX_RETRIES"), "")
+        if raw:
+            env["max_retries"] = int(raw)
+        raw = os.environ.get(flag_name("PLAN_RETRY_BACKOFF_MS"), "")
+        if raw:
+            env["retry_backoff_ms"] = float(raw)
+        raw = os.environ.get(flag_name("PLAN_SCHEDULE"), "")
+        if raw:
+            env["schedule"] = raw.strip().lower()
+        raw = os.environ.get(flag_name("PLAN_INFLIGHT_MAX"), "")
+        if raw:
+            env["inflight_max"] = int(raw)
+        raw = os.environ.get(flag_name("PLAN_FENCE_TIMEOUT_MS"), "")
+        if raw:
+            env["fence_timeout_ms"] = float(raw)
+        env.update(overrides)
+        return cls(**env)
+
+
+class PlanError(RuntimeError):
+    """A batch dispatch/fence failure wrapped with its blast radius.
+
+    Carried on the ticket (``ticket.error``) rather than raised
+    mid-pipeline.  ``guilty`` names the lane indices (positions within
+    the live batch) whose isolated re-dispatch still failed — empty
+    means the batch fully recovered on retry.  When no results could be
+    produced at all, ``collect()`` raises this error.  ``kind`` is
+    ``"error"`` or ``"hang"`` (the fence watchdog escaped a wedge)."""
+
+    def __init__(self, label: str, seq: int, guilty: Sequence[int] = (),
+                 attempts: int = 0, cause: Optional[BaseException] = None,
+                 kind: str = "error"):
+        self.label = label
+        self.seq = seq
+        self.guilty = tuple(guilty)
+        self.attempts = attempts
+        self.cause = cause
+        self.kind = str(kind)
+        msg = f"plan batch {label!r} seq {seq} failed"
+        if self.kind != "error":
+            msg += f" [{self.kind}]"
+        if attempts:
+            msg += f" after {attempts} retr{'y' if attempts == 1 else 'ies'}"
+        if self.guilty:
+            msg += f"; guilty lanes {list(self.guilty)}"
+        if cause is not None:
+            msg += f" (cause: {cause!r})"
+        super().__init__(msg)
+
+
+def _signature(args) -> Tuple:
+    """What a jit cache would key a call on: each leaf's shape and dtype
+    (Python scalars by type)."""
+    sig = []
+    for leaf in tree_leaves(args):
+        if isinstance(leaf, torch.Tensor):
+            sig.append((tuple(leaf.shape), str(leaf.dtype)))
+        elif isinstance(leaf, np.ndarray):
+            sig.append((leaf.shape, leaf.dtype.str))
+        else:
+            sig.append(type(leaf).__name__)
+    return tuple(sig)
+
+
+class PlanProgram:
+    """One dispatch target: a lane-batched kernel, its signature counter
+    and its donation contract.  Built via :meth:`ExecutionPlan.program`;
+    called only through :meth:`ExecutionPlan.submit` (or, for head
+    programs feeding a submit, :meth:`ExecutionPlan.run_inline`)."""
+
+    __slots__ = ("plan", "label", "donate_argnums", "vmap_axes", "_fn",
+                 "_counter")
+
+    def __init__(self, plan: "ExecutionPlan", fn: Callable, *, label: str,
+                 vmap_axes=None, donate_argnums: Sequence[int] = ()):
+        self.plan = plan
+        self.label = label
+        self.donate_argnums = tuple(donate_argnums)
+        self.vmap_axes = vmap_axes
+        self._fn = fn
+        self._counter = ProgramCounter(label)
+
+    def _run(self, *args):
+        self._counter.observe(_signature(args))
+        return self._fn(*args)
+
+    @property
+    def donates(self) -> bool:
+        return bool(self.donate_argnums)
+
+    @property
+    def compiles(self) -> int:
+        return self._counter.count
+
+
+class PlanTicket:
+    """One dispatched batch: a future fenced by ``collect``/``drain``.
+
+    ``error`` is the :class:`PlanError` left by fence-time recovery
+    (None on the happy path); a non-empty ``error.guilty`` names the
+    lanes whose slots in ``result`` are NaN-filled."""
+
+    __slots__ = ("label", "lanes", "n_live", "seq", "request_ids",
+                 "result", "error", "_raw", "_exc", "_restage",
+                 "_program", "_done", "_on_done", "_t_dispatch_us",
+                 "_fencing", "_event", "_marker")
+
+    def __init__(self, label: str, lanes: int, n_live: int, on_done,
+                 seq: int = 0, request_ids: Optional[List[int]] = None):
+        self.label = label
+        self.lanes = lanes
+        self.n_live = n_live
+        self.seq = seq
+        self.request_ids = request_ids
+        self.result = None
+        self.error = None
+        self._raw = None
+        self._exc = None
+        self._restage = None
+        self._program = None
+        self._done = False
+        self._on_done = on_done
+        self._t_dispatch_us = 0.0
+        # popped off the window by a fencer but not yet completed; a
+        # concurrent collector parks on _event instead of re-fencing
+        self._fencing = False
+        self._event = threading.Event()
+        # completion probe recorded after the program (a CUDA event; None
+        # on a CPU plan, whose programs have finished when they return)
+        self._marker = None
+
+    def done(self) -> bool:
+        return self._done
+
+
+def _stack_leaves(leaves: Sequence) -> Any:
+    """Stack one leaf across lanes.  Host leaves (numpy / scalars) stack
+    on the host — one memcpy and ONE host→device transfer at stage time;
+    a leaf set holding tensors stacks on their device."""
+    tensors = [leaf for leaf in leaves if isinstance(leaf, torch.Tensor)]
+    if tensors:
+        dev = tensors[0].device
+        return torch.stack([torch.as_tensor(leaf, device=dev) for leaf in leaves])
+    return np.stack([np.asarray(leaf) for leaf in leaves])
+
+
+def _ticket_ready(ticket: PlanTicket) -> Optional[bool]:
+    """Non-blocking readiness probe for one dispatched ticket: True when
+    its marker reports complete (a dispatch-time exception also counts),
+    False while the device still works, None when there is no probe —
+    the scheduler treats None as "fall back to FIFO"."""
+    if ticket._exc is not None:
+        return True
+    marker = ticket._marker
+    if marker is None:
+        return None
+    try:
+        return bool(marker.query())
+    except Exception:  # noqa: BLE001 — the probe must never raise
+        return None
+
+
+def _nan_like_lane(lane) -> Any:
+    """Filler for a guilty lane's slot in a recovered batch result: NaN
+    for float leaves, zero/False otherwise, shaped from an innocent
+    lane's slice."""
+
+    def fill(a):
+        a = torch.as_tensor(a)
+        if a.is_floating_point():
+            return torch.full_like(a, torch.nan)
+        return torch.zeros_like(a)
+
+    return tree_map(fill, lane)
+
+
+# process-wide plan ids, stamped on the lifecycle spans
+_plan_ids = itertools.count(1)
+
+
+class ExecutionPlan:
+    """Maps a stream of solve batches onto one device with a bounded
+    dispatch-ahead pipeline (module docstring).
+
+    Typical flow::
+
+        plan = ExecutionPlan(PlanOptions.from_env(device="cuda"))
+        prog = plan.program(kernel, label="serve.pdlp#0", vmap_axes=0)
+        batched = plan.stage(plan.stack(per_lane_params, lanes=lanes),
+                             lanes=lanes, donate=prog.donates)
+        ticket = plan.submit(prog, (batched,), n_live=n, lanes=lanes)
+        result = plan.collect(ticket)
+    """
+
+    def __init__(self, options: Optional[PlanOptions] = None, *,
+                 clock: Callable[[], float] = time.monotonic):
+        self.options = options if options is not None else PlanOptions.from_env()
+        if self.options.mesh is not None or (self.options.devices or 0) > 1:
+            raise NotImplementedError(f"a scenario mesh {_NOT_PORTED}")
+        if self.options.inflight_max is not None:
+            raise NotImplementedError(
+                f"PlanOptions.inflight_max (the adaptive depth controller) {_NOT_PORTED}")
+        self.device = resolve_device(self.options.device)
+        # the injectable clock bounds the fence watchdog
+        self._clock = clock
+        self.plan_id = next(_plan_ids)
+        self._seq = itertools.count(1)
+        self._fence_seq = itertools.count(1)
+        self._window: Deque[PlanTicket] = deque()
+        # dispatch/fence window guard; the expensive parts (staging, the
+        # device wait, recovery, on_done) all stay outside it
+        self._lock = sanitized_lock("plan.window", reentrant=True)
+        # fence order guard: one fence retires at a time.  Reentrant: an
+        # on_done that re-submits may have to fence the overflow itself.
+        self._fence_lock = sanitized_lock("plan.fence", reentrant=True)
+        self._gauge = obs_registry.gauge(
+            "plan.inflight",
+            "execution-plan batches dispatched but not yet fenced")
+        self._gauge.set(0.0)
+        self._obs_batches = obs_registry.counter(
+            "plan.batches", "batches dispatched through the execution "
+            "plan (label = program)")
+        self._obs_retries = obs_registry.counter(
+            "plan.retries", "recovery re-dispatches after a batch "
+            "dispatch/fence error — full-batch retries and bisection "
+            "subsets alike (label = program)")
+
+    # -- placement ---------------------------------------------------------
+
+    @property
+    def inflight(self) -> int:
+        """Batches currently dispatched but not yet fenced."""
+        return len(self._window)
+
+    @property
+    def inflight_limit(self) -> int:
+        """The dispatch-window bound."""
+        return max(int(self.options.inflight), 1)
+
+    def lanes_for(self, n_live: int, max_batch: int) -> int:
+        """Shape-stable lane count from the serve bucket menu."""
+        from dispatches_tpu_torch.serve.bucket import pad_lanes
+
+        return pad_lanes(n_live, max_batch)
+
+    def _marker(self):
+        """A completion probe for the work queued so far: a CUDA event
+        recorded on the device's current stream, or None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    # -- staging -----------------------------------------------------------
+
+    def stack(self, trees: Sequence, *, lanes: Optional[int] = None):
+        """Stack per-lane trees into one batched tree, padding to
+        ``lanes`` by repeating the last entry (padded lanes replay a
+        well-posed solve and are sliced off by the caller)."""
+        trees = list(trees)
+        if lanes is not None and lanes > len(trees):
+            trees.extend([trees[-1]] * (lanes - len(trees)))
+        return tree_map(lambda *ls: _stack_leaves(ls), *trees)
+
+    def stage(self, tree, *, lanes: int, donate: bool = True):
+        """Place one batched tree on the plan's device.
+
+        Host leaves are copied to the device; with ``donate`` (the
+        default) every staged leaf is plan-owned: a tensor the caller
+        already holds on the device is cloned, so a program that updates
+        its inputs in place can never touch a caller's buffer.  (The JAX
+        package's ``batched``/``slot`` placement arguments belong to its
+        mesh, which is not ported.)"""
+        tracing = obs_trace.enabled()
+        t0_us = obs_trace.now_us() if tracing else 0.0
+        if _faults.armed():
+            _faults.check("plan.stage")
+        dev = self.device
+
+        def place(leaf):
+            if isinstance(leaf, torch.Tensor):
+                t = leaf.to(dev)
+                return t.clone() if donate and t is leaf else t
+            return torch.tensor(np.asarray(leaf), device=dev)
+
+        staged = tree_map(place, tree)
+        if tracing:
+            obs_trace.complete("plan.stage", t0_us, obs_trace.now_us() - t0_us,
+                               plan=self.plan_id, lanes=lanes)
+        return staged
+
+    # -- programs ----------------------------------------------------------
+
+    def program(self, fn: Callable, *, label: str, vmap_axes=None,
+                donate: Optional[bool] = None,
+                donate_argnums: Optional[Sequence[int]] = None,
+                n_args: int = 1) -> PlanProgram:
+        """Build the dispatch target for one lane-batched kernel.
+
+        ``vmap_axes`` records which arguments carry the lane axis (0)
+        and which are shared (None).  Donation: explicit
+        ``donate_argnums`` wins; otherwise ``donate`` (plan default)
+        donates all ``n_args`` positional batch-state args."""
+        if donate_argnums is None:
+            donate = self.options.donate if donate is None else donate
+            donate_argnums = tuple(range(n_args)) if donate else ()
+        return PlanProgram(self, fn, label=label, vmap_axes=vmap_axes,
+                           donate_argnums=donate_argnums)
+
+    def run_inline(self, program: PlanProgram, args: Tuple):
+        """Run one auxiliary program with NO window entry: no ticket, no
+        fence bookkeeping, no in-flight slot.  For head programs whose
+        outputs feed straight into a :meth:`submit` as that batch's
+        staged inputs (serve's warm-start predictor): the outputs stay on
+        the device, queued ahead of the batch that consumes them, whose
+        fence covers both."""
+        tracing = obs_trace.enabled()
+        t0_us = obs_trace.now_us() if tracing else 0.0
+        out = program._run(*args)
+        if tracing:
+            obs_trace.complete("plan.inline", t0_us,
+                               obs_trace.now_us() - t0_us,
+                               plan=self.plan_id, label=program.label)
+        return out
+
+    # -- dispatch pipeline -------------------------------------------------
+
+    def submit(self, program: PlanProgram, args: Tuple, *,
+               n_live: int, lanes: int,
+               on_done: Optional[Callable[[PlanTicket], None]] = None,
+               request_ids: Optional[List[int]] = None,
+               restage: Optional[Callable] = None) -> PlanTicket:
+        """Dispatch one staged batch.
+
+        Returns a ticket; when the in-flight window is full the OLDEST
+        batch is fenced first.  ``on_done`` runs at fence time with the
+        completed ticket.  ``restage`` arms fence-time recovery: a
+        callable mapping a tuple of live-lane indices to ``(args, lanes,
+        request_ids)`` for that subset, re-staged from host data.
+        Without it a failed batch carries a :class:`PlanError` covering
+        every lane and ``collect()`` raises."""
+        tracing = obs_trace.enabled()
+        # the program runs OUTSIDE the window lock: a second submitter
+        # (or a collector probing the window) must not wait on it
+        ticket = PlanTicket(program.label, lanes, n_live, on_done,
+                            request_ids=request_ids)
+        ticket._program = program
+        ticket._restage = restage
+        ticket._t_dispatch_us = obs_trace.now_us() if tracing else 0.0
+        try:
+            if _faults.armed():
+                _faults.check("plan.submit", label=program.label,
+                              request_ids=request_ids)
+                _faults.check("solver", label=program.label,
+                              request_ids=request_ids)
+            ticket._raw = program._run(*args)
+            ticket._marker = self._marker()
+        except Exception as exc:  # noqa: BLE001 — recovery at fence
+            ticket._exc = exc
+        end_us = obs_trace.now_us() if tracing else 0.0
+        with self._lock:
+            # seq is assigned with the append, under the same lock, so
+            # window order IS seq order
+            ticket.seq = next(self._seq)
+            self._window.append(ticket)
+            inflight = len(self._window)
+        if tracing:
+            args_kw = dict(plan=self.plan_id, seq=ticket.seq,
+                           label=ticket.label, lanes=lanes,
+                           live=n_live, inflight=inflight)
+            if request_ids is not None:
+                args_kw["request_ids"] = list(request_ids)
+            obs_trace.complete("plan.submit", ticket._t_dispatch_us,
+                               end_us - ticket._t_dispatch_us, **args_kw)
+        self._obs_batches.inc(label=program.label)
+        self._gauge.set(float(inflight))
+        # fence window overflow OUTSIDE the dispatch lock
+        self._trim_window()
+        return ticket
+
+    def collect(self, ticket: PlanTicket):
+        """Fence batches until this ticket completes; returns its result.
+
+        A batch that produced no results at all raises its
+        :class:`PlanError` here; a partially recovered batch returns a
+        result whose guilty lanes (``ticket.error.guilty``) are
+        NaN-filled."""
+        while not ticket._done:
+            with self._lock:
+                if ticket._done:  # fenced by a concurrent collector
+                    break
+                pending = ticket in self._window
+                if not pending and not ticket._fencing:
+                    raise RuntimeError(
+                        f"ticket for {ticket.label!r} is neither in "
+                        "flight nor complete — was it submitted "
+                        "through this plan?")
+            if pending:
+                self._fence_next(prefer=ticket)
+            else:
+                # popped by a concurrent fencer mid-completion
+                ticket._event.wait()
+        if ticket.result is None and ticket.error is not None:
+            raise ticket.error
+        return ticket.result
+
+    def drain(self) -> int:
+        """Fence every in-flight batch; returns how many this caller
+        fenced."""
+        n = 0
+        while self._fence_next() is not None:
+            n += 1
+        return n
+
+    # -- fencing -----------------------------------------------------------
+
+    def _select_index(self, prefer: Optional[PlanTicket]) -> int:
+        """Window index of the next ticket to fence (caller holds the
+        window lock): FIFO takes the oldest; ``"ready"`` the oldest
+        completed batch, then the preferred ticket, then the oldest."""
+        if self.options.schedule != "ready" or len(self._window) <= 1:
+            return 0
+        for i, t in enumerate(self._window):
+            if _ticket_ready(t):
+                return i
+        if prefer is not None:
+            for i, t in enumerate(self._window):
+                if t is prefer:
+                    return i
+        return 0
+
+    def _trim_window(self) -> None:
+        while True:
+            with self._lock:
+                if len(self._window) <= self.inflight_limit:
+                    return
+            if self._fence_next() is None:
+                return
+
+    def _fence_next(self,
+                    prefer: Optional[PlanTicket] = None
+                    ) -> Optional[PlanTicket]:
+        """Retire one dispatched batch (schedule picks which); None when
+        the window is empty."""
+        # the fence lock holds across the device wait + on_done BY
+        # DESIGN: only fencers contend on it
+        with self._fence_lock:  # lockcheck: intentional
+            with self._lock:
+                if not self._window:
+                    return None
+                idx = self._select_index(prefer)
+                if idx:
+                    chosen = self._window[idx]
+                    del self._window[idx]
+                    self._window.appendleft(chosen)
+            return self._complete_oldest()
+
+    def _complete_oldest(self) -> PlanTicket:
+        # the window lock is held ONLY for the pop
+        with self._lock:
+            ticket = self._window.popleft()
+            ticket._fencing = True
+            inflight_after = len(self._window)
+            self._gauge.set(float(inflight_after))
+        tracing = obs_trace.enabled()
+        t_fence_us = obs_trace.now_us() if tracing else 0.0
+        try:
+            try:
+                if ticket._exc is not None:
+                    exc, ticket._exc = ticket._exc, None
+                    raise exc
+                if _faults.armed():
+                    _faults.check("plan.fence", label=ticket.label,
+                                  request_ids=ticket.request_ids)
+                ticket.result = self._fence(ticket)
+            except Exception as exc:  # noqa: BLE001 — the failure domain
+                self._recover(ticket, exc)
+            ticket._raw = None
+            ticket._marker = None
+            ticket._done = True
+            if tracing:
+                end_us = obs_trace.now_us()
+                order = next(self._fence_seq)
+                obs_trace.complete("plan.fence", t_fence_us,
+                                   end_us - t_fence_us, plan=self.plan_id,
+                                   seq=ticket.seq, label=ticket.label,
+                                   lanes=ticket.lanes,
+                                   inflight=inflight_after, order=order)
+                args_kw = dict(plan=self.plan_id, seq=ticket.seq,
+                               label=ticket.label, lanes=ticket.lanes,
+                               live=ticket.n_live, inflight=inflight_after)
+                if ticket.request_ids is not None:
+                    args_kw["request_ids"] = list(ticket.request_ids)
+                obs_trace.complete("plan.dispatch", ticket._t_dispatch_us,
+                                   end_us - ticket._t_dispatch_us, **args_kw)
+            if ticket._on_done is not None:
+                ticket._on_done(ticket)
+        finally:
+            # always release waiters, even when on_done raised
+            ticket._event.set()
+        return ticket
+
+    # -- fence watchdog ----------------------------------------------------
+
+    def _fence(self, ticket: PlanTicket):
+        """The blocking device wait, bounded by the fence watchdog when
+        ``fence_timeout_ms`` is set (an injected ``hang_s`` consumes the
+        plan clock first; a real wedge is bounded by polling the
+        ticket's marker).  A fence past its budget raises
+        ``PlanError(kind="hang")`` into :meth:`_recover`."""
+        timeout_ms = self.options.fence_timeout_ms
+        timeout_s = None if timeout_ms is None else max(
+            float(timeout_ms), 0.0) / 1e3
+        if _faults.armed():
+            hang_s = _faults.hang_for("plan.fence", label=ticket.label,
+                                      request_ids=ticket.request_ids)
+            if hang_s > 0.0:
+                waited = hang_s if timeout_s is None else min(hang_s, timeout_s)
+                self._advance_clock(waited)
+                if timeout_s is not None and hang_s > timeout_s:
+                    self._hang_escape(ticket)
+        if timeout_s is not None:
+            self._watch_fence(ticket, timeout_s)
+        if ticket._marker is not None:
+            ticket._marker.synchronize()
+        return ticket._raw
+
+    def _advance_clock(self, seconds: float) -> None:
+        """Consume ``seconds`` from the injectable clock: virtual clocks
+        (anything with ``.advance``) jump; real clocks sleep, capped."""
+        adv = getattr(self._clock, "advance", None)
+        if adv is not None:
+            adv(seconds)
+        else:
+            time.sleep(min(seconds, _HANG_SLEEP_CAP_S))
+
+    def _watch_fence(self, ticket: PlanTicket, timeout_s: float) -> None:
+        """Poll ticket readiness until complete or the budget expires,
+        on both the injectable clock and wall time.  Without a probe the
+        watchdog cannot observe progress and falls through to the plain
+        blocking fence."""
+        t0 = self._clock()
+        wall0 = time.monotonic()
+        while True:
+            ready = _ticket_ready(ticket)
+            if ready is None or ready:
+                return
+            if (self._clock() - t0 >= timeout_s
+                    or time.monotonic() - wall0 >= timeout_s):
+                self._hang_escape(ticket)
+            time.sleep(min(timeout_s / 20.0, 0.001))
+
+    def _hang_escape(self, ticket: PlanTicket) -> None:
+        raise PlanError(ticket.label, ticket.seq, kind="hang",
+                        guilty=(), attempts=0)
+
+    # -- failure domain ----------------------------------------------------
+
+    def _redispatch(self, ticket: PlanTicket, idxs: Sequence[int]):
+        """Synchronously re-stage and re-run a subset of a failed batch;
+        the fault sites are re-checked so persistent (poison) rules keep
+        failing until bisection has isolated their lanes."""
+        self._obs_retries.inc(label=ticket.label)
+        args, lanes, req_ids = ticket._restage(tuple(idxs))
+        if _faults.armed():
+            for site in ("plan.submit", "solver", "plan.fence"):
+                _faults.check(site, label=ticket.label, request_ids=req_ids)
+        out = ticket._program._run(*args)
+        marker = self._marker()
+        if marker is not None:
+            marker.synchronize()
+        return out
+
+    def _recover(self, ticket: PlanTicket, exc: BaseException) -> None:
+        """Contain one failed batch: full retries with capped exponential
+        backoff, then lane bisection to isolate guilty lanes.  Leaves
+        ``ticket.error`` (always) and ``ticket.result`` (unless no lane
+        could produce one)."""
+        label = ticket.label
+        kind = getattr(exc, "kind", "error")
+        if ticket._restage is None or ticket._program is None:
+            ticket.error = PlanError(
+                label, ticket.seq, guilty=tuple(range(ticket.n_live)),
+                attempts=0, cause=exc, kind=kind)
+            return
+        _faults.note_recovered(exc)
+        indices = list(range(ticket.n_live))
+        backoff_ms = max(float(self.options.retry_backoff_ms), 0.0)
+        attempts = 0
+        for attempt in range(1, max(int(self.options.max_retries), 0) + 1):
+            attempts = attempt
+            if backoff_ms > 0.0:
+                time.sleep(min(backoff_ms * 2.0 ** (attempt - 1),
+                               _BACKOFF_CAP_MS) / 1e3)
+            try:
+                res = self._redispatch(ticket, indices)
+            except Exception as exc2:  # noqa: BLE001
+                _faults.note_recovered(exc2)
+                continue
+            ticket.result = res
+            ticket.error = PlanError(label, ticket.seq, guilty=(),
+                                     attempts=attempts, cause=exc, kind=kind)
+            return
+        # retries exhausted: bisect so every innocent lane still
+        # completes and only the guilty ones fail
+        results: Dict[int, Any] = {}
+        guilty: List[int] = []
+        stack = [indices]
+        while stack:
+            idxs = stack.pop()
+            try:
+                res = self._redispatch(ticket, idxs)
+            except Exception as exc2:  # noqa: BLE001
+                _faults.note_recovered(exc2)
+                if len(idxs) == 1:
+                    guilty.append(idxs[0])
+                else:
+                    mid = len(idxs) // 2
+                    stack.append(idxs[mid:])
+                    stack.append(idxs[:mid])
+                continue
+            for j, i in enumerate(idxs):
+                results[i] = tree_map(lambda a, _j=j: a[_j], res)
+        guilty.sort()
+        if results:
+            filler = _nan_like_lane(next(iter(results.values())))
+            lanes_out = [results.get(i, filler) for i in indices]
+            ticket.result = tree_map(
+                lambda *ls: torch.stack([torch.as_tensor(v) for v in ls]), *lanes_out)
+        ticket.error = PlanError(label, ticket.seq, guilty=tuple(guilty),
+                                 attempts=attempts, cause=exc, kind=kind)

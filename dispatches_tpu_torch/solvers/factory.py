@@ -164,16 +164,40 @@ class _PDLPSolver:
 
 
 class _ServeSolver:
-    """``SolverFactory("serve")``: the micro-batching solve service is not
-    ported yet."""
+    """Route reference-style ``solve(nlp, params=...)`` calls through the
+    shared micro-batching :class:`~dispatches_tpu_torch.serve.SolveService`:
+    independent callers holding the same model aggregate into one
+    lane-batched program per shape bucket.
+
+    ``SolverFactory("serve")`` uses the process-wide default service (on
+    ``device``, ``cuda`` unless given); pass ``service=`` for an isolated
+    one, and ``solver=`` to pin the kind ("pdlp"/"ipm"; default "auto")."""
 
     name = "serve"
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SolverFactory('serve') needs the solve service, which is not "
-            "ported yet (ROADMAP.md queue 1, item 8: serve and learn)"
-        )
+    def __init__(self, service=None, solver: str = "auto", device=None, **options):
+        if service is None:
+            from dispatches_tpu_torch.serve import get_default_service
+
+            service = get_default_service(device)
+        self.service = service
+        self.kind = solver
+        self.options = options
+
+    def solve(self, nlp, params=None, x0=None, tee: bool = False, **opt_overrides):
+        opts = dict(self.options)
+        opts.update(opt_overrides)
+        handle = self.service.submit(
+            nlp, params, x0, solver=self.kind, options=opts or None)
+        sr = handle.result()
+        if sr.status != "DONE":
+            raise RuntimeError(f"serve solve finished with status {sr.status}")
+        if tee:
+            print(
+                f"[dispatches_tpu.serve] bucket={handle.bucket_label} "
+                f"latency_ms={sr.latency_ms:.2f} obj={sr.obj:.8g}"
+            )
+        return sr.result
 
 
 _REGISTRY = {
@@ -189,8 +213,8 @@ _REGISTRY = {
 
 
 def SolverFactory(name: str, **options):
-    """A solver object by name (``ipopt``/``ipm``, ``cbc``/``pdlp``);
-    ``options`` are solver options plus ``device``."""
+    """A solver object by name (``ipopt``/``ipm``, ``cbc``/``pdlp``,
+    ``serve``); ``options`` are solver options plus ``device``."""
     try:
         cls = _REGISTRY[name.lower()]
     except KeyError:

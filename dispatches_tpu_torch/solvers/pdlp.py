@@ -12,15 +12,16 @@ the solver.  The preconditioning (Ruiz equilibration, Pock–Chambolle
 pass, power-iteration norm) is host numpy, copied from the JAX package
 so both packages precondition bit for bit alike.
 
-:func:`make_pdlp_solver` solves one scenario per call: restarted
-averaged or reflected-Halpern PDHG with plain ``torch.matmul`` sweeps
-(the JAX package runs them as XLA scans, not Pallas kernels), the
-optional high-tier refinement tail and the float64 active-set polish.
-Its loops are host loops that read ``done`` once per ``check_every``
-steps.  Batches of scenarios go through
-``solvers.pdlp_batch.make_pdlp_batch_solver``, whose sweeps are the CUDA
-kernels: ``torch.func.vmap`` cannot carry this solver's data-dependent
-loop.
+:func:`make_pdlp_solver` solves one scenario, or a lane axis of them
+(the counterpart of ``jax.vmap(make_pdlp_solver(...))``, which the serve
+buckets run): restarted averaged or reflected-Halpern PDHG with plain
+``torch.matmul`` sweeps (the JAX package runs them as XLA scans, not
+Pallas kernels), the optional high-tier refinement tail and the float64
+active-set polish.  Its loops are host loops that read "any lane still
+running" once per ``check_every`` steps; per-lane branches are masks.
+The batch-native solver with the CUDA sweep kernels is
+``solvers.pdlp_batch.make_pdlp_batch_solver``, whose restart trajectories
+differ from this one's.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 from dispatches_tpu_torch import resolve_device
 from dispatches_tpu_torch.analysis.flags import flag_name
 from dispatches_tpu_torch.analysis.runtime import nan_guard
+from dispatches_tpu_torch.utils.tree import tree_map
 
 PDLP_ALGORITHMS = ("avg", "halpern")
 
@@ -97,7 +99,7 @@ class PDLPOptions:
     ruiz_iters: int = 10
     dtype: str = "float32"       # sweep/iterate dtype
     omega0: float = 1.0          # initial primal weight
-    polish: bool = False         # active-set crossover (per-scenario only)
+    polish: bool = False         # active-set crossover
     polish_act_tol: float = 1e-3  # relative activity threshold
     stall_min_iters: int = 2400  # earliest stall-exit iteration
     algorithm: str = "halpern"   # "halpern" | "avg"
@@ -254,23 +256,13 @@ def _params_on(params, device):
     return {grp: {k: leaf(v) for k, v in d.items()} for grp, d in params.items()}
 
 
-def _tree_map(fn, tree, *rest):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
-    return fn(tree, *rest)
-
-
-def _tree_leaves(tree):
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in _tree_leaves(v)]
-    return [tree]
-
-
 def _lane_axes(nlp, params):
     """``(axes, B)`` for a params tree of tensors: a leaf with one leading
     axis more than its ``default_params()`` counterpart is a lane axis
     (``axes`` 0), any other leaf is broadcast (None); ``B`` is the lane
     count, or None when no leaf is batched."""
+    sizes = set()
+
     def axis_of(leaf, default_leaf):
         extra = leaf.ndim - np.ndim(default_leaf)
         if extra not in (0, 1):
@@ -278,11 +270,12 @@ def _lane_axes(nlp, params):
                 f"parameter leaf has {extra} extra leading dims vs the "
                 "default; expected 0 (broadcast) or 1 (batch axis)"
             )
-        return 0 if extra == 1 else None
+        if extra == 1:
+            sizes.add(leaf.shape[0])
+            return 0
+        return None
 
-    axes = _tree_map(axis_of, params, nlp.default_params())
-    sizes = {leaf.shape[0] for leaf, ax in zip(_tree_leaves(params), _tree_leaves(axes))
-             if ax == 0}
+    axes = tree_map(axis_of, params, nlp.default_params())
     if len(sizes) > 1:
         raise ValueError(f"inconsistent batch sizes: {sorted(sizes)}")
     return axes, (sizes.pop() if sizes else None)
@@ -343,8 +336,16 @@ def make_lp_data(nlp, probe_params=None, device=None):
 
 def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
                      trace: bool = False, device=None):
-    """Build ``solver(params, start=None) -> LPResult`` for one scenario of
-    an affine CompiledNLP, on ``device`` (``cuda`` unless given).
+    """Build ``solver(params, start=None) -> LPResult`` for an affine
+    CompiledNLP, on ``device`` (``cuda`` unless given).
+
+    ``params`` holds one scenario, or a batch of them: a leaf with one
+    leading axis more than its ``default_params()`` counterpart is a lane
+    axis (the counterpart of ``jax.vmap(make_pdlp_solver(...))``), and every
+    field of the result then carries it.  Each lane runs the scenario's own
+    solve: its restarts, primal weight and exits are its own, and a lane
+    that finished is frozen (state and ``iters``) while the others go on,
+    as a vmapped ``while_loop`` freezes it.
 
     ``c``/``q``/``h`` are re-derived from ``params`` on every call (one
     residual evaluation at x=0 plus one objective gradient, float64).
@@ -353,12 +354,13 @@ def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
     ``(x0, z0, kind)``: ``x0`` in the CompiledNLP scaled space (the space
     ``LPResult.x`` reports), ``z0`` in the original constraint space
     (``LPResult.z``), ``kind`` one of the ``START_*`` codes (default
-    exact), echoed in ``LPResult.start_kind``.  The start seeds the
-    iterate and (halpern) the anchor.  ``start=None`` is the cold path,
-    and a zero-vector start reproduces it bit for bit.
+    exact), echoed in ``LPResult.start_kind``; with lanes, each may carry
+    the lane axis.  The start seeds the iterate and (halpern) the anchor.
+    ``start=None`` is the cold path, and a zero-vector start reproduces it
+    bit for bit, lane by lane.
 
-    ``trace=True`` returns ``(LPResult, trace_dict)`` where ``trace_dict``
-    holds one row per termination check (fixed length
+    ``trace=True`` (one scenario only) returns ``(LPResult, trace_dict)``
+    where ``trace_dict`` holds one row per termination check (fixed length
     ``ceil(max_iter / check_every)``; rows past the end repeat the final
     state): ``it``, candidate KKT ``err``, ``err_best``, and the
     best-iterate ``pr`` / ``du`` / ``gap``.  The iterate arithmetic is the
@@ -380,14 +382,15 @@ def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
     def dev_t(a, dt=dtype):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dt)
 
+    # lane state is (B, n) / (B, m): products are v @ Ah^T and z @ Ah
     Ah_raw = dev_t(Ah)
     AhT_raw = dev_t(Ah.T)
 
     def Amv(v):
-        return Ah_raw @ v
+        return v @ AhT_raw
 
     def ATmv(v):
-        return AhT_raw @ v
+        return v @ Ah_raw
 
     if plan.policy == "bf16x-f32":
         # low tier for the inner sweeps only: bf16 operands with
@@ -398,10 +401,10 @@ def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
         AhT_lo = AhT_raw.to(torch.bfloat16).to(dtype)
 
         def Amv_sw(v):
-            return Ah_lo @ v.to(torch.bfloat16).to(dtype)
+            return v.to(torch.bfloat16).to(dtype) @ AhT_lo
 
         def ATmv_sw(v):
-            return AhT_lo @ v.to(torch.bfloat16).to(dtype)
+            return v.to(torch.bfloat16).to(dtype) @ Ah_lo
     else:
         Amv_sw, ATmv_sw = Amv, ATmv
     dr_j = dev_t(dr)
@@ -415,7 +418,8 @@ def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
     inv_step = torch.tensor(1.0 / norm_A, dtype=dtype, device=dev)
 
     def _inf(v):
-        return v.abs().max() if v.shape[0] else v.new_zeros(())
+        """Per-lane inf-norm over the last axis."""
+        return v.abs().amax(dim=-1) if v.shape[-1] else v.new_zeros(v.shape[:-1])
 
     def _make_kkt(Amv_, ATmv_, lb_, ub_):
         """KKT-error evaluator for one precision tier (the matvecs and
@@ -425,7 +429,8 @@ def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
         ub_fin = torch.where(ub_ok, ub_, 0.0)
 
         def kkt(x, z, c, b):
-            """Relative primal/dual/gap errors in the equilibrated space."""
+            """Relative primal/dual/gap errors in the equilibrated space,
+            one per lane."""
             ax = Amv_(x)
             viol = torch.where(is_eq, (ax - b).abs(), torch.clamp(ax - b, min=0.0))
             pr = _inf(viol) / (1.0 + _inf(b))
@@ -435,9 +440,9 @@ def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
             rd = r - torch.where(r > 0, torch.where(lb_ok, r, 0.0),
                                  torch.where(ub_ok, r, 0.0))
             du = _inf(rd) / (1.0 + _inf(c))
-            pobj = c @ x
-            dobj = -(b @ z) + (torch.clamp(r, min=0.0) * lb_fin
-                               + torch.clamp(r, max=0.0) * ub_fin).sum()
+            pobj = (c * x).sum(-1)
+            dobj = -(b * z).sum(-1) + (torch.clamp(r, min=0.0) * lb_fin
+                                       + torch.clamp(r, max=0.0) * ub_fin).sum(-1)
             gap = (pobj - dobj).abs() / (1.0 + pobj.abs() + dobj.abs())
             return pr, du, gap
         return kkt
@@ -446,8 +451,8 @@ def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
     ridge = torch.tensor(1e-7, dtype=f64, device=dev)
 
     def _polish(x, z, c, b):
-        """Active-set crossover (see ``PDLPOptions.polish``): fix the
-        variables at their identified active bounds, restrict to the
+        """Active-set crossover (see ``PDLPOptions.polish``), per lane: fix
+        the variables at their identified active bounds, restrict to the
         identified active rows, and project x onto that face by a
         min-norm correction (row-space normal equations, float64 Cholesky
         factor and one iterative-refinement step).  Masks, not gathers,
@@ -466,31 +471,35 @@ def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
         rowm = row_act.to(dtype)
         freem = (~fixed).to(dtype)
 
-        M = Ah_raw * rowm[:, None]
-        Mf = M * freem[None, :]
+        def mv(Mat, v):
+            return (Mat @ v[..., None])[..., 0]
+
+        M = Ah_raw * rowm[:, :, None]
+        Mf = M * freem[:, None, :]
         x_free = x * freem
-        rhs = b * rowm - M @ v_fix
-        d = rhs - Mf @ x_free
-        H = Mf @ Mf.T
-        H64 = H.to(f64) + ridge * torch.eye(H.shape[0], dtype=f64, device=dev)
+        rhs = b * rowm - mv(M, v_fix)
+        d = rhs - mv(Mf, x_free)
+        H = Mf @ Mf.transpose(-1, -2)
+        H64 = H.to(f64) + ridge * torch.eye(H.shape[-1], dtype=f64, device=dev)
         # a failed factor is NaN, as jnp.linalg.cholesky returns it
         L, info = torch.linalg.cholesky_ex(H64)
-        L = torch.where(info == 0, L, torch.nan)
+        L = torch.where((info == 0)[:, None, None], L, torch.nan)
         Mf64 = Mf.to(f64)
+        MfT64 = Mf64.transpose(-1, -2)
         d64 = d.to(f64)
-        lam = torch.cholesky_solve(d64[:, None], L)[:, 0]
-        resid = d64 - Mf64 @ (Mf64.T @ lam) - ridge * lam
-        lam = lam + torch.cholesky_solve(resid[:, None], L)[:, 0]
-        xf = x_free.to(f64) + Mf64.T @ lam
+        lam = torch.cholesky_solve(d64[..., None], L)[..., 0]
+        resid = d64 - mv(Mf64, mv(MfT64, lam)) - ridge * lam
+        lam = lam + torch.cholesky_solve(resid[..., None], L)[..., 0]
+        xf = x_free.to(f64) + mv(MfT64, lam)
         xp64 = torch.where(fixed, v_fix.to(f64), xf)
         xp64 = torch.minimum(torch.maximum(xp64, lb_h.to(f64)), ub_h.to(f64))
         # guard against a singular/garbage factor (degenerate bases)
-        return xp64 if bool(torch.isfinite(xp64).all()) else x.to(f64)
+        return torch.where(torch.isfinite(xp64).all(-1, keepdim=True), xp64, x.to(f64))
 
     def _pdhg_sweep(x, z, xs, zs, c, b, omega, k):
         """k fixed PDHG steps, extending the running average sums."""
-        tau = omega * inv_step
-        sig = inv_step / omega
+        tau = (omega * inv_step)[:, None]
+        sig = (inv_step / omega)[:, None]
         for _ in range(k):
             xn = torch.clamp(x - tau * (c + ATmv_sw(z)), lb_h, ub_h)
             z_t = z + sig * (Amv_sw(2.0 * xn - x) - b)
@@ -501,17 +510,21 @@ def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
     def _halpern_sweep(x, z, xa, za, xs, zs, c, b, omega, k0, k):
         """k reflected-Halpern PDHG steps anchored at (xa, za):
         w_{j+1} = (j+1)/(j+2) * (2 T(w_j) - w_j) + 1/(j+2) * anchor, with
-        j = k0 + step counting from the last restart.  Returns the final
-        reflected iterate (x, z), the last operator output (xt, zt) — a
-        feasible candidate — and the operator-output sums (xs, zs)."""
-        tau = omega * inv_step * _HALPERN_STEP_SCALE
-        sig = inv_step / omega * _HALPERN_STEP_SCALE
+        j = k0 + step counting from each lane's last restart.  Returns the
+        final reflected iterate (x, z), the last operator output (xt, zt) —
+        a feasible candidate — and the operator-output sums (xs, zs)."""
+        tau = (omega * inv_step * _HALPERN_STEP_SCALE)[:, None]
+        sig = (inv_step / omega * _HALPERN_STEP_SCALE)[:, None]
+        # every step's weight per lane, in float64 then cast, as the JAX
+        # package computes (j + 1.0) / (j + 2.0) from its int32 counter
+        j = k0.to(f64)[:, None] + torch.arange(k, dtype=f64, device=dev)
+        ws = ((j + 1.0) / (j + 2.0)).to(dtype)
         xt, zt = x, z
-        for j in range(k0, k0 + k):
+        for i in range(k):
             xt = torch.clamp(x - tau * (c + ATmv_sw(z)), lb_h, ub_h)
             z_t = z + sig * (Amv_sw(2.0 * xt - x) - b)
             zt = torch.where(is_eq, z_t, torch.clamp(z_t, min=0.0))
-            w = torch.tensor((j + 1.0) / (j + 2.0), dtype=dtype, device=dev)
+            w = ws[:, i:i + 1]
             x = w * (2.0 * xt - x) + (1.0 - w) * xa
             z = w * (2.0 * zt - z) + (1.0 - w) * za
             xs, zs = xs + xt, zs + zt
@@ -524,6 +537,11 @@ def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
     stall_min = (opt.stall_min_iters if plan.rounds == 0
                  else min(opt.stall_min_iters, 12 * ce))
 
+    def _freeze(active, new, old):
+        """``new`` on the active lanes, ``old`` (frozen) on the rest."""
+        return {k: torch.where(active.view(-1, *([1] * (v.ndim - 1))), v, old[k])
+                for k, v in new.items()}
+
     if plan.rounds:
         hdt = getattr(torch, plan.hi)
         Ah_hi = dev_t(Ah, hdt)
@@ -531,81 +549,102 @@ def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
         lb_hi = dev_t(data["lb"] / dc, hdt)
         ub_hi = dev_t(data["ub"] / dc, hdt)
         dc_hi = dev_t(dc, hdt)
-        kkt_hi = _make_kkt(lambda v: Ah_hi @ v, lambda v: AhT_hi @ v, lb_hi, ub_hi)
+        kkt_hi = _make_kkt(lambda v: v @ AhT_hi, lambda v: v @ Ah_hi, lb_hi, ub_hi)
         ws_hi = [torch.tensor((j + 1.0) / (j + 2.0), dtype=hdt, device=dev)
                  for j in range(opt.refine_iters)]
 
         def _refine(x0_, z0_, c, b, omega):
-            """Iterative-refinement tail: up to ``plan.rounds`` epochs of
-            ``opt.refine_iters`` reflected-Halpern steps in the HIGH tier,
-            each re-anchored at its own start, keeping the best candidate
-            seen; stops as soon as the error reaches ``tol``."""
-            x_it = x0_.to(hdt)
-            z_it = z0_.to(hdt)
+            """Iterative-refinement tail, per lane: up to ``plan.rounds``
+            epochs of ``opt.refine_iters`` reflected-Halpern steps in the
+            HIGH tier, each re-anchored at its own start, keeping the best
+            candidate seen; a lane stops as soon as its error reaches
+            ``tol`` (and is frozen while the others go on)."""
             ch = c.to(hdt)
             bh = b.to(hdt)
-            tau = (omega * inv_step * _HALPERN_STEP_SCALE).to(hdt)
-            sig = (inv_step / omega * _HALPERN_STEP_SCALE).to(hdt)
+            tau = (omega * inv_step * _HALPERN_STEP_SCALE).to(hdt)[:, None]
+            sig = (inv_step / omega * _HALPERN_STEP_SCALE).to(hdt)[:, None]
 
             def err_of(x_, z_):
                 pr, du, gap = kkt_hi(x_, z_, ch, bh)
                 return torch.maximum(torch.maximum(pr, du), gap), (pr, du, gap)
 
+            x_it = x0_.to(hdt)
+            z_it = z0_.to(hdt)
             e_b, (pr, du, gap) = err_of(x_it, z_it)
-            xb, zb = x_it, z_it
-            rounds = 0
-            while rounds < plan.rounds and bool(e_b > opt.tol):
-                x_, z_ = x_it, z_it
-                xs = torch.zeros_like(x_it)
-                zs = torch.zeros_like(z_it)
+            r = {"x_it": x_it, "z_it": z_it, "xb": x_it, "zb": z_it, "e_b": e_b,
+                 "pr": pr, "du": du, "gap": gap,
+                 "rounds": torch.zeros(e_b.shape, dtype=torch.int32, device=dev)}
+            active = (r["rounds"] < plan.rounds) & (r["e_b"] > opt.tol)
+            while bool(active.any()):
+                x_, z_ = r["x_it"], r["z_it"]
+                xs = torch.zeros_like(x_)
+                zs = torch.zeros_like(z_)
                 for w in ws_hi:
-                    xt = torch.clamp(x_ - tau * (ch + AhT_hi @ z_), lb_hi, ub_hi)
-                    z_t = z_ + sig * (Ah_hi @ (2.0 * xt - x_) - bh)
+                    xt = torch.clamp(x_ - tau * (ch + z_ @ Ah_hi), lb_hi, ub_hi)
+                    z_t = z_ + sig * ((2.0 * xt - x_) @ AhT_hi - bh)
                     zt = torch.where(is_eq, z_t, torch.clamp(z_t, min=0.0))
-                    x_ = w * (2.0 * xt - x_) + (1.0 - w) * x_it
-                    z_ = w * (2.0 * zt - z_) + (1.0 - w) * z_it
+                    x_ = w * (2.0 * xt - x_) + (1.0 - w) * r["x_it"]
+                    z_ = w * (2.0 * zt - z_) + (1.0 - w) * r["z_it"]
                     xs, zs = xs + xt, zs + zt
                 e_cur, k_cur = err_of(xt, zt)
                 xa = xs / opt.refine_iters
                 za = zs / opt.refine_iters
                 e_avg, k_avg = err_of(xa, za)
                 use_avg = e_avg < e_cur
-                xc = torch.where(use_avg, xa, xt)
-                zc = torch.where(use_avg, za, zt)
+                ua = use_avg[:, None]
                 e_c = torch.minimum(e_avg, e_cur)
-                new_best = e_c < e_b
-                xb = torch.where(new_best, xc, xb)
-                zb = torch.where(new_best, zc, zb)
-                pr = torch.where(new_best, torch.where(use_avg, k_avg[0], k_cur[0]), pr)
-                du = torch.where(new_best, torch.where(use_avg, k_avg[1], k_cur[1]), du)
-                gap = torch.where(new_best, torch.where(use_avg, k_avg[2], k_cur[2]), gap)
-                e_b = torch.where(new_best, e_c, e_b)
-                # continue from the reflected iterate, not the candidate
-                x_it, z_it = x_, z_
-                rounds += 1
-            return xb, zb, pr, du, gap, rounds
+                nb = e_c < r["e_b"]
+                nb_ = nb[:, None]
+                new = {
+                    # continue from the reflected iterate, not the candidate
+                    "x_it": x_, "z_it": z_,
+                    "xb": torch.where(nb_, torch.where(ua, xa, xt), r["xb"]),
+                    "zb": torch.where(nb_, torch.where(ua, za, zt), r["zb"]),
+                    "e_b": torch.where(nb, e_c, r["e_b"]),
+                    "rounds": r["rounds"] + 1,
+                }
+                for key, ka, kc in zip(("pr", "du", "gap"), k_avg, k_cur):
+                    new[key] = torch.where(nb, torch.where(use_avg, ka, kc), r[key])
+                r = _freeze(active, new, r)
+                active = (r["rounds"] < plan.rounds) & (r["e_b"] > opt.tol)
+            return r["xb"], r["zb"], r["pr"], r["du"], r["gap"], r["rounds"]
 
     def solver(params, start=None) -> LPResult:
-        params = _params_on(params, dev)
-        c, b = _lp_rhs(nlp, params, dc64, dr64, dtype)
+        P = _params_on(params, dev)
+        axes, B_p = _lane_axes(nlp, P)
+        B = B_p
+        if B is None and start is not None and torch.as_tensor(start[0]).ndim == 2:
+            B = torch.as_tensor(start[0]).shape[0]  # lanes from the start alone
+        batched = B is not None
+        if trace and batched:
+            raise ValueError("make_pdlp_solver(trace=True) takes one scenario, "
+                             "not a lane axis")
+        B = B or 1
+        if B_p is not None:
+            c, b = torch.func.vmap(lambda p: _lp_rhs(nlp, p, dc64, dr64, dtype),
+                                   in_dims=(axes,))(P)
+        else:
+            c, b = _lp_rhs(nlp, P, dc64, dr64, dtype)
+            c, b = c.expand(B, n), b.expand(B, m_eq + m_in)
         if start is None:
             # cold path: the x=0/z=0 init
-            x = torch.clamp(torch.zeros(n, dtype=dtype, device=dev), lb_h, ub_h)
-            z = torch.zeros(m_eq + m_in, dtype=dtype, device=dev)
+            x = torch.clamp(torch.zeros(n, dtype=dtype, device=dev), lb_h, ub_h).expand(B, n)
+            z = torch.zeros((B, m_eq + m_in), dtype=dtype, device=dev)
             start_kind = None
         else:
             # x0 in the CompiledNLP scaled space, z0 in the original
             # constraint space: map both into the equilibrated space and
             # project; a zero start reproduces the cold arithmetic
             kind = start[2] if len(start) > 2 else START_EXACT
-            x = torch.clamp(torch.as_tensor(start[0], device=dev).to(dtype) / dc_j, lb_h, ub_h)
+            x = torch.clamp(torch.as_tensor(start[0], device=dev).to(dtype) / dc_j,
+                            lb_h, ub_h).expand(B, n)
             zw = torch.as_tensor(start[1], device=dev).to(dtype) / dr_j
-            z = torch.where(is_eq, zw, torch.clamp(zw, min=0.0))
-            start_kind = torch.as_tensor(kind, device=dev).to(torch.int32)
+            z = torch.where(is_eq, zw, torch.clamp(zw, min=0.0)).expand(B, m_eq + m_in)
+            start_kind = torch.as_tensor(kind, device=dev).to(torch.int32).expand(B)
 
         # initial primal weight omega ~ |b|/|c| balances primal and dual
         # travel in this parameterization (tau = omega/|A|)
-        nb, nc = torch.linalg.vector_norm(b), torch.linalg.vector_norm(c)
+        nb, nc = torch.linalg.vector_norm(b, dim=-1), torch.linalg.vector_norm(c, dim=-1)
         omega0 = torch.where((nb > 0.0) & (nc > 0.0), torch.clamp(nb / nc, 1e-4, 1e6),
                              torch.tensor(opt.omega0, dtype=dtype, device=dev)).to(dtype)
 
@@ -616,44 +655,51 @@ def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
         e0, k0 = err_of(x, z)
 
         def restart_and_track(s, e_c, xc, zc, k, artificial_floor):
-            """The between-check bookkeeping both algorithms share: PDLP
-            sufficient-decay + artificial restarts, primal-weight
-            rebalancing, best iterate and the stall/floor exit."""
+            """The between-check bookkeeping both algorithms share, per
+            lane: PDLP sufficient-decay + artificial restarts,
+            primal-weight rebalancing, best iterate and the stall/floor
+            exit."""
             sufficient = e_c <= opt.restart_beta * s["e_r"]
-            do_restart = bool(sufficient) or k >= max(0.36 * s["it"], artificial_floor)
-            out = dict(s)
-            if do_restart:
-                dx = _inf(xc - s["xr"])
-                dz = _inf(zc - s["zr"])
-                out["omega"] = torch.clamp(torch.exp(
-                    0.5 * torch.log(s["omega"])
-                    + 0.5 * torch.log(torch.clamp(dx, min=1e-10) / torch.clamp(dz, min=1e-10))),
-                    1e-6, 1e8)
-                out.update(xr=xc, zr=zc, e_r=e_c)
+            rs = sufficient | (k >= torch.clamp(0.36 * s["it"].to(f64),
+                                                min=float(artificial_floor)))
+            rs_ = rs[:, None]
+            dx = _inf(xc - s["xr"])
+            dz = _inf(zc - s["zr"])
+            omega_new = torch.clamp(torch.exp(
+                0.5 * torch.log(s["omega"])
+                + 0.5 * torch.log(torch.clamp(dx, min=1e-10) / torch.clamp(dz, min=1e-10))),
+                1e-6, 1e8)
             improved = e_c < 0.95 * s["e_b"]
             new_best = e_c < s["e_b"]
-            out["e_b"] = torch.where(new_best, e_c, s["e_b"])
-            out["xb"] = torch.where(new_best, xc, s["xb"])
-            out["zb"] = torch.where(new_best, zc, s["zb"])
-            out["stall"] = 0 if bool(improved) else s["stall"] + 1
+            nb_ = new_best[:, None]
+            e_b = torch.where(new_best, e_c, s["e_b"])
+            stall = torch.where(improved, 0, s["stall"] + 1)
             # the floored exit may not fire before stall_min_iters: an
             # early plateau is a pre-restart lull, not the f32 floor
-            floored = (bool(out["e_b"] < 20.0 * tol_main) and out["stall"] >= 12
-                       and s["it"] >= stall_min)
-            out["done"] = bool(out["e_b"] < tol_main) or floored
-            out["k"] = 0 if do_restart else k
-            out["it"] = s["it"] + ce
+            floored = (e_b < 20.0 * tol_main) & (stall >= 12) & (s["it"] >= stall_min)
+            out = {
+                "omega": torch.where(rs, omega_new, s["omega"]),
+                "xr": torch.where(rs_, xc, s["xr"]), "zr": torch.where(rs_, zc, s["zr"]),
+                "e_r": torch.where(rs, e_c, s["e_r"]),
+                "e_b": e_b,
+                "xb": torch.where(nb_, xc, s["xb"]), "zb": torch.where(nb_, zc, s["zb"]),
+                "stall": stall,
+                "done": s["done"] | (e_b < tol_main) | floored,
+                "k": torch.where(rs, 0, k),
+                "it": s["it"] + ce,
+            }
             if trace:
                 out["e_c"] = e_c
-            return do_restart, new_best, out
+            return rs_, new_best, out
 
         def candidates(x1, z1, xa, za):
             e_cur, k_cur = err_of(x1, z1)
             e_avg, k_avg = err_of(xa, za)
             use_avg = e_avg < e_cur
+            ua = use_avg[:, None]
             comps = [torch.where(use_avg, a, b_) for a, b_ in zip(k_avg, k_cur)]
-            return (torch.minimum(e_avg, e_cur), torch.where(use_avg, xa, x1),
-                    torch.where(use_avg, za, z1), comps)
+            return (torch.minimum(e_avg, e_cur), torch.where(ua, xa, x1),
+                    torch.where(ua, za, z1), comps)
 
         def track_comps(s, out, new_best, comps):
             if trace:
@@ -665,11 +711,13 @@ def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
                                          s["omega"], ce)
             nan_guard("pdlp.iterate", x1, z1)
             k = s["k"] + ce
-            e_c, xc, zc, comps = candidates(x1, z1, xs / k, zs / k)
-            do_restart, new_best, out = restart_and_track(s, e_c, xc, zc, k, 8 * ce)
-            out["x"], out["z"] = (xc, zc) if do_restart else (x1, z1)
-            out["xs"], out["zs"] = ((torch.zeros_like(xs), torch.zeros_like(zs))
-                                    if do_restart else (xs, zs))
+            kf = k.to(dtype)[:, None]
+            e_c, xc, zc, comps = candidates(x1, z1, xs / kf, zs / kf)
+            rs_, new_best, out = restart_and_track(s, e_c, xc, zc, k, 8 * ce)
+            out["x"] = torch.where(rs_, xc, x1)
+            out["z"] = torch.where(rs_, zc, z1)
+            out["xs"] = torch.where(rs_, 0.0, xs)
+            out["zs"] = torch.where(rs_, 0.0, zs)
             track_comps(s, out, new_best, comps)
             return out
 
@@ -682,31 +730,32 @@ def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
             # two candidates: the last operator output (feasible) and the
             # in-epoch mean of operator outputs (smooths f32 rounding at
             # the KKT floor)
-            kf = torch.tensor(k, dtype=dtype, device=dev)
+            kf = k.to(dtype)[:, None]
             e_c, xc, zc, comps = candidates(xt, zt, xts / kf, zts / kf)
             # restart-to-current-iterate; the artificial floor is one
             # check interval (re-anchoring is free)
-            do_restart, new_best, out = restart_and_track(s, e_c, xc, zc, k, ce)
-            out["x"], out["z"] = (xc, zc) if do_restart else (x1, z1)
+            rs_, new_best, out = restart_and_track(s, e_c, xc, zc, k, ce)
+            out["x"] = torch.where(rs_, xc, x1)
+            out["z"] = torch.where(rs_, zc, z1)
             # xs/zs carry the Halpern ANCHOR (a restart re-anchors at the
             # candidate), xts/zts the in-epoch operator-output sums
-            if do_restart:
-                out.update(xs=xc, zs=zc, xts=torch.zeros_like(xts),
-                           zts=torch.zeros_like(zts))
-            else:
-                out.update(xts=xts, zts=zts)
+            out["xs"] = torch.where(rs_, xc, s["xs"])
+            out["zs"] = torch.where(rs_, zc, s["zs"])
+            out["xts"] = torch.where(rs_, 0.0, xts)
+            out["zts"] = torch.where(rs_, 0.0, zts)
             track_comps(s, out, new_best, comps)
             return out
 
         step = step_halpern if algo == "halpern" else step_avg
+        zeros_i = torch.zeros(B, dtype=torch.int64, device=dev)
         s = {
             "x": x, "z": z,
             # avg: running sums (start at 0); halpern: anchor (start at
             # the initial point)
             "xs": x if algo == "halpern" else torch.zeros_like(x),
             "zs": z if algo == "halpern" else torch.zeros_like(z),
-            "k": 0, "xr": x, "zr": z, "e_r": e0, "omega": omega0, "it": 0,
-            "done": bool(e0 < tol_main), "e_b": e0, "stall": 0, "xb": x, "zb": z,
+            "k": zeros_i, "xr": x, "zr": z, "e_r": e0, "omega": omega0, "it": zeros_i,
+            "done": e0 < tol_main, "e_b": e0, "stall": zeros_i, "xb": x, "zb": z,
         }
         if algo == "halpern":
             s["xts"] = torch.zeros_like(x)
@@ -714,14 +763,17 @@ def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
         rows = []
 
         def row(s_):
-            return (s_["it"], s_["e_c"], s_["e_b"], s_["pr_b"], s_["du_b"], s_["gap_b"])
+            return tuple(s_[key][0] for key in ("it", "e_c", "e_b", "pr_b", "du_b", "gap_b"))
 
         if trace:
             s.update(e_c=e0, pr_b=k0[0], du_b=k0[1], gap_b=k0[2])
-        while s["it"] < opt.max_iter and not s["done"]:
-            s = step(s)
+        # one host read per check: does any lane still run?
+        active = (s["it"] < opt.max_iter) & ~s["done"]
+        while bool(active.any()):
+            s = _freeze(active, step(s), s)
             if trace:
                 rows.append(row(s))
+            active = (s["it"] < opt.max_iter) & ~s["done"]
 
         xb, zb = s["xb"], s["zb"]
         if plan.rounds:
@@ -731,7 +783,7 @@ def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
         else:
             xh = None
             pr, du, gap = _kkt_errors(xb, zb, c, b)
-            refined = 0
+            refined = torch.zeros(B, dtype=torch.int32, device=dev)
         x_scaled = xb * dc_j  # back to the CompiledNLP's scaled space
         if opt.polish:
             xp64 = _polish(xb, zb, c, b)
@@ -742,9 +794,9 @@ def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
             pr = torch.where(better, prp, pr)
             du = torch.where(better, dup, du)
             gap = torch.where(better, gapp, gap)
-            x_scaled = torch.where(better, xp, xb) * dc_j
+            x_scaled = torch.where(better[:, None], xp, xb) * dc_j
             # the f64 vertex is what gets certified
-            x_obj = torch.where(better, xp64, xb.to(f64)) * dc_j
+            x_obj = torch.where(better[:, None], xp64, xb.to(f64)) * dc_j
         elif plan.rounds and getattr(torch, plan.hi) != dtype:
             # the f64 refined iterate goes into the objective evaluation
             x_obj = xh * dc_hi
@@ -752,23 +804,27 @@ def make_pdlp_solver(nlp, options: PDLPOptions = PDLPOptions(), lp_data=None,
             x_obj = x_scaled.to(f64)
         # the model objective itself (keeps any constant term c'x misses,
         # and the user's declared sense)
-        obj = nlp.user_objective(x_obj, params)
+        if batched:
+            obj = torch.func.vmap(nlp.user_objective, in_dims=(0, axes))(x_obj, P)
+        else:
+            obj = nlp.user_objective(x_obj[0], P)[None]
         result = LPResult(
             x=x_scaled, obj=obj,
             converged=torch.maximum(torch.maximum(pr, du), gap) < opt.tol,
-            iters=torch.tensor(s["it"], dtype=torch.int32, device=dev),
+            iters=s["it"].to(torch.int32),
             pr_err=pr, du_err=du, gap=gap,
             z=zb * dr_j,
-            refined=torch.tensor(refined, dtype=torch.int32, device=dev),
+            refined=refined.to(torch.int32),
             start_kind=start_kind,
         )
+        if not batched:
+            result = LPResult(*(None if f is None else f[0] for f in result))
         if not trace:
             return result
         n_checks = -(-opt.max_iter // ce)
         rows += [row(s)] * (n_checks - len(rows))
         keys = ("it", "err", "err_best", "pr", "du", "gap")
-        rec = {key: torch.stack([torch.as_tensor(r[i], device=dev) for r in rows])
-               for i, key in enumerate(keys)}
+        rec = {key: torch.stack([r[i] for r in rows]) for i, key in enumerate(keys)}
         return result, rec
 
     return solver

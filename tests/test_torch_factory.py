@@ -5,7 +5,8 @@ solver per (nlp, options) (the second solve is a cache hit), a stale
 ``id()`` entry is refused, and an unknown name raises.  Also: ``ipopt``
 and ``cbc`` agree on an LP and with the JAX factory (objectives within
 1e-6), ``cbc`` on a non-affine model falls back to the IPM, the tee lines
-carry the JAX package's fields, and ``serve`` is refused as not ported."""
+carry the JAX package's fields, and ``serve`` routes to the solve
+service while the service's unported parts (the journal) are refused."""
 
 import gc
 import re
@@ -110,8 +111,17 @@ def test_factory_unknown_solver():
 
 
 def test_serve_is_not_ported():
+    """``serve`` itself is ported (tests/test_torch_serve.py holds it to
+    the JAX service); what of it is not ported yet raises."""
+    from dispatches_tpu_torch.serve import SolveService, set_default_service
+
+    prev = set_default_service(None)
+    try:
+        assert SolverFactory("serve", device=CPU).service.plan.device.type == "cpu"
+    finally:
+        set_default_service(prev)
     with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        SolverFactory("serve", device=CPU)
+        SolveService(device=CPU, journal_dir="unused")
 
 
 def test_register_solver():

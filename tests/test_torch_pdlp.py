@@ -9,7 +9,15 @@ relative) of the JAX solve and within 1e-4 of HiGHS.  Also: a zero start
 is bitwise the cold solve, a traced solve is bitwise the untraced one and
 its rows match JAX's, the polish only tightens parity, the row duals are
 the shadow prices and match JAX's, the bf16 tier's refinement tail
-restores accuracy, and a non-affine model raises."""
+restores accuracy, and a non-affine model raises.
+
+With a lane axis (the counterpart of ``jax.vmap(make_pdlp_solver)``, which
+every serve PDLP bucket runs), on 8 lanes in f64 at tol 1e-8: per-lane
+iterations equal to the vmapped JAX solve where JAX's vmapped and
+per-scenario solves agree, objectives within 1e-9, mixed cold/exact/
+neighbour starts with ``start_kind`` echoed, each lane equal to the
+port's one-scenario solve, a zero start bitwise the cold batch, and the
+bf16x-f32 refinement tail and the polish run per lane."""
 
 import numpy as np
 import pytest
@@ -29,6 +37,8 @@ from dispatches_tpu_torch.core.graph import Flowsheet as TFlowsheet  # noqa: E40
 from dispatches_tpu_torch.core.graph import tshift as t_tshift  # noqa: E402
 from dispatches_tpu_torch.solvers import (  # noqa: E402
     START_COLD,
+    START_EXACT,
+    START_NEIGHBOR,
     PDLPOptions,
     make_lp_data,
     make_pdlp_solver,
@@ -262,3 +272,123 @@ def test_lp_data_can_be_shared(pair):
     a = make_pdlp_solver(tn, opts, device=CPU)(tn.default_params())
     b = make_pdlp_solver(tn, opts, lp_data=data, device=CPU)(tn.default_params())
     assert torch.equal(a.x, b.x) and int(a.iters) == int(b.iters)
+
+
+# ---------------------------------------------------------------------------
+# the lane axis: the counterpart of jax.vmap(make_pdlp_solver)
+# ---------------------------------------------------------------------------
+
+
+def _batch(nlp, lmps, cfs):
+    return {"p": {"lmp": lmps, "wind_cap_cf": cfs}, "fixed": nlp.default_params()["fixed"]}
+
+
+def _jax_vmapped(jn, kw):
+    axes = ({"p": {"lmp": 0, "wind_cap_cf": 0}, "fixed": None},)
+    return j_make_pdlp(jn, JPDLPOptions(**kw)), axes
+
+
+@pytest.fixture(scope="module")
+def lanes8():
+    return _scenarios(5, 8)
+
+
+@pytest.mark.parametrize("algorithm", ["halpern", "avg"])
+def test_lane_axis_matches_vmapped_jax(pair, lanes8, algorithm):
+    """8 lanes in f64 at tol 1e-8: per-lane iterations equal to the vmapped
+    JAX solve wherever JAX's vmapped and per-scenario solves agree with
+    each other (all 8 here), objectives within 1e-9; each lane equals the
+    port's own one-scenario solve."""
+    jn, tn = pair
+    lmps, cfs = lanes8
+    kw = dict(tol=1e-8, dtype="float64", algorithm=algorithm)
+    js, axes = _jax_vmapped(jn, kw)
+    want = jax.jit(jax.vmap(js, in_axes=axes))(
+        _batch(jn, jnp.asarray(lmps), jnp.asarray(cfs)))
+    jper = [int(jax.jit(js)(_lane(jn, lmps, cfs, i)).iters) for i in range(8)]
+    solve = make_pdlp_solver(tn, PDLPOptions(**kw), device=CPU)
+    got = solve(_batch(tn, lmps, cfs))
+    assert got.x.shape == (8, tn.n) and got.iters.shape == (8,) and got.start_kind is None
+    assert bool(got.converged.all())
+    agree = [i for i in range(8) if jper[i] == int(want.iters[i])]
+    assert len(agree) == 8
+    for i in agree:
+        assert int(got.iters[i]) == int(want.iters[i])
+    np.testing.assert_allclose(got.obj.numpy(), np.asarray(want.obj), rtol=1e-9)
+    for i in range(8):
+        one = solve(_lane(tn, lmps, cfs, i))
+        assert int(one.iters) == int(got.iters[i])
+        assert float(one.obj) == pytest.approx(float(got.obj[i]), rel=1e-12)
+        np.testing.assert_allclose(one.z.numpy(), got.z[i].numpy(), rtol=1e-9, atol=1e-12)
+
+
+def test_lane_axis_mixed_starts_match_vmapped_jax(pair, lanes8):
+    """Cold, exact and neighbour lanes in one stack, f64 tol 1e-8:
+    ``start_kind`` echoed per lane, iterations and objectives as JAX's
+    vmapped solve with the same start stack."""
+    jn, tn = pair
+    lmps, cfs = lanes8
+    kw = dict(tol=1e-8, dtype="float64")
+    solve = make_pdlp_solver(tn, PDLPOptions(**kw), device=CPU)
+    cold = solve(_batch(tn, lmps, cfs))
+    x0, z0 = cold.x.numpy().copy(), cold.z.numpy().copy()
+    kinds = np.array([START_COLD, START_EXACT, START_NEIGHBOR, START_EXACT,
+                      START_COLD, START_NEIGHBOR, START_EXACT, START_COLD], np.int32)
+    x0[kinds == START_COLD] = 0.0
+    z0[kinds == START_COLD] = 0.0
+    lm2 = lmps.copy()
+    lm2[kinds == START_NEIGHBOR] *= 1.02  # the neighbours solve a drifted point
+    got = solve(_batch(tn, lm2, cfs), start=(x0, z0, kinds))
+    js, axes = _jax_vmapped(jn, kw)
+    want = jax.jit(jax.vmap(js, in_axes=axes + ((0, 0, 0),)))(
+        _batch(jn, jnp.asarray(lm2), jnp.asarray(cfs)),
+        (jnp.asarray(x0), jnp.asarray(z0), jnp.asarray(kinds)))
+    np.testing.assert_array_equal(got.start_kind.numpy(), kinds)
+    np.testing.assert_array_equal(got.start_kind.numpy(), np.asarray(want.start_kind))
+    np.testing.assert_array_equal(got.iters.numpy(), np.asarray(want.iters))
+    np.testing.assert_allclose(got.obj.numpy(), np.asarray(want.obj), rtol=1e-9)
+    exact = kinds == START_EXACT
+    assert (got.iters.numpy()[exact] <= 40).all()
+    assert (got.iters.numpy()[kinds == START_NEIGHBOR] < cold.iters.numpy()[kinds == START_NEIGHBOR]).all()
+
+
+def test_lane_axis_zero_start_is_bitwise_cold(pair, lanes8):
+    _, tn = pair
+    lmps, cfs = lanes8
+    solve = make_pdlp_solver(tn, PDLPOptions(tol=1e-5, dtype="float32"), device=CPU)
+    cold = solve(_batch(tn, lmps, cfs))
+    zero = solve(_batch(tn, lmps, cfs),
+                 start=(np.zeros((8, tn.n)), np.zeros((8, tn.m_eq + tn.m_ineq)),
+                        np.full(8, START_COLD, np.int32)))
+    assert cold.start_kind is None and (zero.start_kind.numpy() == START_COLD).all()
+    for f in ("x", "obj", "iters", "pr_err", "du_err", "gap", "z", "refined", "converged"):
+        assert torch.equal(getattr(cold, f), getattr(zero, f)), f
+    with pytest.raises(ValueError, match="one scenario"):
+        make_pdlp_solver(tn, PDLPOptions(tol=1e-5), trace=True, device=CPU)(
+            _batch(tn, lmps, cfs))
+
+
+def test_lane_axis_refinement_tail_and_polish_per_lane():
+    """bf16x-f32: every lane's refinement tail runs (and stops) on its own,
+    with its one-scenario solve's iterations and rounds; the polish runs
+    per lane too."""
+    jn, tn = _pair(8)
+    lmps, cfs = _scenarios(9, 4, T=8)
+    for kw in (dict(tol=1e-5, dtype="float32", precision="bf16x-f32"),
+               dict(tol=1e-5, dtype="float32", polish=True)):
+        solve = make_pdlp_solver(tn, PDLPOptions(**kw), device=CPU)
+        got = solve(_batch(tn, lmps, cfs))
+        for i in range(4):
+            one = solve(_lane(tn, lmps, cfs, i))
+            assert int(one.iters) == int(got.iters[i]) and int(one.refined) == int(got.refined[i])
+            # f32: the batched products round differently in the last
+            # bits (the bf16 tier amplifies it); within the solve's tol
+            assert float(one.obj) == pytest.approx(float(got.obj[i]), rel=kw["tol"])
+            ref = _highs_battery(8, lmps[i], cfs[i])
+            assert float(got.obj[i]) == pytest.approx(ref, rel=1e-4)
+        if kw.get("precision"):
+            assert (got.refined.numpy() > 0).all() and bool(got.converged.all())
+        js, axes = _jax_vmapped(jn, kw)
+        want = jax.jit(jax.vmap(js, in_axes=axes))(
+            _batch(jn, jnp.asarray(lmps), jnp.asarray(cfs)))
+        np.testing.assert_allclose(got.obj.numpy(), np.asarray(want.obj), rtol=1e-4)
