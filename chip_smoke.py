@@ -16,8 +16,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
 3. kernels: hold each kernel (avg and halpern; f32, f64 and bf16-operand
    tiers) to its plain PyTorch version on the card: at the main-path
    shapes (m 218, n 193, k 40; B = 4096 and a ragged B = 366), and on a
-   dense, an empty-row-and-column, a dense too large for shared memory
-   and a wide operator, so that every kernel family runs; then time the
+   dense, an empty-row-and-column, a dense too large for shared memory,
+   a wide operator and the PEM price-taker's, so that every kernel family
+   runs; then time the
    kernels against their plain versions in turns with CUDA events (every
    tier at B = 366, 1024 and 4096) and sweep lanes per block;
 4. the interior-point path (float64; it runs no hand-written kernel, and
@@ -43,7 +44,20 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    ``[serve-ipm]`` ``entry()``'s 8 lanes through an IPM bucket, statuses
    and objectives as ``[entry]``; ``[plan]`` a poisoned lane isolated with
    bitwise batchmates, FIFO against ready fencing bitwise;
-   ``[serve-trace]`` one warmed 64-lane batch under torch.profiler.
+   ``[serve-trace]`` one warmed 64-lane batch under torch.profiler;
+6. the hydrogen hybrid (float64 IPM; the sweep kernels' counts are read
+   around it): ``[h2-units]`` the PEM, simple and detailed tank and
+   hydrogen turbine recipes of tests/test_models.py at its anchors;
+   ``[pem]`` ``wind_battery_pem_optimize`` at T = 24 and 168 against
+   HiGHS; ``[pem-batch]`` bench.py's 32-lane PEM recipe through the IPM,
+   status-0 lanes against HiGHS; ``[pem-pdlp]`` its LMPs widened to 366
+   lanes through the batch PDLP on the CUDA sweeps (phase 3 also holds
+   both kernels on this operator); ``[hybrid]`` the full hybrid (wind +
+   battery + PEM + tank + turbine) at T = 24 on the structured KKT path,
+   converged, with the tank balance, the air/H2 ratio and the work signs;
+   ``[hybrid-trace]`` its first 15 Newton iterations under torch.profiler;
+   ``[hybrid-dense]`` the first Newton iteration on the dense KKT path,
+   its primal iterate within 1e-6 of the structured path's.
 
 Phase 3 times every kernel tier at B = 366, 1024 and 4096.  The line
 before the last is a JSON summary of the kernels; the last line
@@ -231,7 +245,7 @@ def _other_operators(Ah_main, lb_main, ub_main, m_eq_main):
     a fully dense one, the main one with an empty row and column, a dense
     one too large for shared memory (read through the read-only cache)
     and a wide sparse one whose lane state does not fit the registers
-    (held in shared memory)."""
+    (held in shared memory).  ``lanes`` None is the wrapper's own choice."""
     rng = np.random.default_rng(7)
 
     def box(n):
@@ -264,7 +278,11 @@ def _bound(algo, m, n, nnz, B, dtype_name):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernels(torch, lp, dev):
+def phase_kernels(torch, lp, dev, pem_lp):
+    """Both kernels against their plain versions on the main path's
+    operator, the others of ``_other_operators`` and the PEM
+    price-taker's (``pem_lp``, phase 6's [pem-pdlp] operator); then their
+    times.  Returns the JSON line's numbers per kernel."""
     from dispatches_tpu_torch.kernels import pdhg_sweep as ks
     from dispatches_tpu_torch.solvers.pdlp import PDLPOptions, _scalings
 
@@ -314,6 +332,10 @@ def phase_kernels(torch, lp, dev):
                                  ("avg", ks.avg_sweep, ks.avg_sweep_reference)):
         _, dc, Ah, _ = _scalings(A, PDLPOptions(algorithm=algo))
         lb, ub = lp["lb"] / dc, lp["ub"] / dc
+        _, dc_p, Ah_p, _ = _scalings(np.vstack([pem_lp["K"], pem_lp["G"]]),
+                                     PDLPOptions(algorithm=algo))
+        others = _other_operators(Ah, lb, ub, m_eq) + [
+            ("pem LP", Ah_p, pem_lp["lb"] / dc_p, pem_lp["ub"] / dc_p, pem_lp["K"].shape[0], None)]
         m, n = Ah.shape
         nnz = int(np.count_nonzero(Ah))
         errs, families = {}, set()
@@ -329,7 +351,7 @@ def phase_kernels(torch, lp, dev):
                 errs[(tier, B)], fam = compare(algo, wrapper, plain, const, lane, tier,
                                                low, tol, None, "main")
                 families.add(fam)
-            for label, Ao, lbo, ubo, m_eqo, lanes in _other_operators(Ah, lb, ub, m_eq):
+            for label, Ao, lbo, ubo, m_eqo, lanes in others:
                 const, lane = _sweep_inputs(torch, Ao, lbo, ubo, m_eqo, N_SCENARIOS, dtype,
                                             dev, seed=11)
                 errs[(tier, label)], fam = compare(
@@ -758,28 +780,37 @@ def phase_factory(torch, dev):
           "[factory] cbc did not fall back to the IPM on a non-affine model")
 
 
-def phase_optimize(torch, dev):
-    from dispatches_tpu_torch.case_studies.renewables import wind_battery_optimize
+def design_vs_highs(torch, dev, tag, optimize, T_opt, params):
+    """One design study (``optimize(T, params, device=)``, an LP solved by
+    the IPM) against HiGHS on the port's own LP data; returns its result."""
     from dispatches_tpu_torch.solvers import make_lp_data
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = optimize(T_opt, params, device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    nlp = out.nlp
+    ref = highs_objective(torch, nlp, make_lp_data(nlp, device=dev), nlp.default_params(),
+                          f"{tag} T={T_opt}")
+    err = abs(float(out.res.obj) - ref) / max(abs(ref), 1.0)
+    print(f"[{tag}] T={T_opt} n={nlp.n} m_eq={nlp.m_eq} m_ineq={nlp.m_ineq} NPV={out.npv:.2f} "
+          f"battery_kw={out.battery_power_kw:.3f} converged={out.converged} "
+          f"iterations={int(out.res.iterations)} wall {dt * 1e3:.1f} ms (build included) "
+          f"obj_rel_err_vs_highs {err:.3e}")
+    check(out.converged and err <= IPM_RTOL,
+          f"[{tag}] T={T_opt}: converged={out.converged}, objective error {err:.3e}")
+    return out
+
+
+def phase_optimize(torch, dev):
+    from dispatches_tpu_torch.case_studies.renewables import wind_battery_optimize
+
     for T_opt in (24, 168):
-        params = {"wind_mw": 100, "batt_mw": 10, "capacity_factors": np.full(T_opt, 0.5),
-                  "DA_LMPs": np.where(np.arange(T_opt) % 24 < 12, 5.0, 100.0),
-                  "design_opt": True, "extant_wind": True}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = wind_battery_optimize(T_opt, params, device=dev)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        nlp = out.nlp
-        ref = highs_objective(torch, nlp, make_lp_data(nlp, device=dev), nlp.default_params(),
-                              f"optimize T={T_opt}")
-        err = abs(float(out.res.obj) - ref) / max(abs(ref), 1.0)
-        print(f"[optimize] T={T_opt} n={nlp.n} NPV={out.npv:.2f} battery_kw={out.battery_power_kw:.3f} "
-              f"converged={out.converged} iterations={int(out.res.iterations)} "
-              f"wall {dt * 1e3:.1f} ms (build included) obj_rel_err_vs_highs {err:.3e}")
-        check(out.converged and err <= IPM_RTOL,
-              f"[optimize] T={T_opt}: converged={out.converged}, objective error {err:.3e}")
+        design_vs_highs(torch, dev, "optimize", wind_battery_optimize, T_opt, {
+            "wind_mw": 100, "batt_mw": 10, "capacity_factors": np.full(T_opt, 0.5),
+            "DA_LMPs": np.where(np.arange(T_opt) % 24 < 12, 5.0, 100.0),
+            "design_opt": True, "extant_wind": True})
 
 
 def phase_ipm_path(torch, dev, main_run):
@@ -1098,6 +1129,340 @@ def phase_serve_path(torch, dev, main_run, entry_run):
           f"halpern {ks.halpern_sweep.launches}, avg {ks.avg_sweep.launches}")
 
 
+# ---------------------------------------------------------------------
+# phase 6: the hydrogen hybrid (PEM, tanks, turbine) on the float64 IPM
+# ---------------------------------------------------------------------
+
+H2_T = 24            # tests/test_re_pem_hybrid.py's horizon
+H2_T_LONG = 168      # [pem]'s second horizon: the same formulas over a week
+PEM_BATCH = 32       # [pem-batch]: bench.py's nlp_pem24h lanes
+HYB_TRACE_ITERS = 15   # [hybrid-trace]: Newton iterations under the profiler
+HYB_STEP_RTOL = 1e-6   # [hybrid-dense]: the KKT paths' first primal steps
+
+
+def _h2_params(horizon, **over):
+    """tests/test_re_pem_hybrid.py's params, its capacity-factor and LMP
+    formulas evaluated over ``horizon`` hours."""
+    t = np.arange(horizon)
+    params = {"wind_mw": 100.0, "wind_mw_ub": 1000.0, "batt_mw": 10.0, "pem_mw": 20.0,
+              "turb_mw": 1.0, "tank_size": 0.3, "tank_type": "simple",
+              "capacity_factors": 0.3 + 0.3 * np.sin(2 * np.pi * t / 24) ** 2,
+              "DA_LMPs": np.where(t % 24 < 12, 15.0, 60.0), "h2_price_per_kg": 2.0,
+              "design_opt": True, "extant_wind": True}
+    params.update(over)
+    return params
+
+
+def pem_batch_model(torch, dev):
+    """bench.py's nlp_pem24h recipe (wind 200 MW, battery and PEM 25 MW,
+    sizes fixed, capacity factors 0.35 + 0.3 U from default_rng(1)): the
+    PEM price-taker LP, its LP data, and an LMP batch maker continuing
+    the same generator (35 + 25 sin(2πt/24) + 10 N(0, 1) $/MWh); the
+    first 32 rows of any batch are [pem-batch]'s."""
+    from dispatches_tpu_torch.case_studies.renewables import wind_battery_pem_optimize
+    from dispatches_tpu_torch.solvers import make_lp_data
+
+    rng = np.random.default_rng(1)
+    base = 35.0 + 25.0 * np.sin(2 * np.pi * np.arange(H2_T) / 24)
+    out = wind_battery_pem_optimize(H2_T, {
+        "wind_mw": 200.0, "batt_mw": 25.0, "pem_mw": 25.0, "design_opt": False,
+        "extant_wind": True, "capacity_factors": 0.35 + 0.3 * rng.random(H2_T),
+        "DA_LMPs": base}, device=dev)
+    check(out.converged, "[pem-batch] the design solve of bench.py's recipe did not converge")
+    nlp = out.nlp
+    lp = make_lp_data(nlp, device=dev)
+    noise = rng.standard_normal((N_SCENARIOS, H2_T))
+    print(f"[pem-lp] n={nlp.n} m_eq={nlp.m_eq} m_ineq={nlp.m_ineq} "
+          f"nnz={int(np.count_nonzero(np.vstack([lp['K'], lp['G']])))}")
+    return {"nlp": nlp, "lp": lp, "lmps": (base[None, :] + 10.0 * noise)}
+
+
+def _pem_params(torch, nlp, lmps, dev=None):
+    """Params with an LMP batch ($/MWh rows) as the lane axis, or one row
+    as numpy leaves (dev None)."""
+    d = nlp.default_params()
+    lmp = lmps * 1e-3 if dev is None else torch.as_tensor(lmps * 1e-3, device=dev)
+    return {"p": {**d["p"], "lmp": lmp}, "fixed": d["fixed"]}
+
+
+def h2_units(torch, dev):
+    """The unit recipes of tests/test_models.py (PEM, simple tank, detailed
+    tank filling and emptying, hydrogen turbine) solved on the card, held
+    to that file's anchors and tolerances."""
+    from dispatches_tpu_torch.core.graph import Flowsheet
+    from dispatches_tpu_torch.models import (
+        HydrogenTank,
+        HydrogenTurbine,
+        PEMElectrolyzer,
+        SimpleHydrogenTank,
+    )
+    from dispatches_tpu_torch.solvers import IPMOptions, solve_nlp
+
+    def solve(label, fs, max_iter=None):
+        nlp = fs.compile()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve_nlp(nlp, options=IPMOptions(max_iter=max_iter) if max_iter else None,
+                        device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(bool(res.converged), f"[h2-units] {label}: not converged")
+        print(f"[h2-units] {label}: n={nlp.n} m_eq={nlp.m_eq} status {int(res.status)} "
+              f"iterations {int(res.iterations)} in {dt * 1e3:.1f} ms")
+        return nlp.unravel(res.x)
+
+    def near(label, got, want, rel):
+        got = float(got)
+        print(f"[h2-units]   {label} {got:.8g} (anchor {want:.8g}, rel {rel:.0e})")
+        check(abs(got - want) <= rel * abs(want), f"[h2-units] {label} {got} vs {want}")
+
+    fs = Flowsheet(horizon=1)
+    pem = PEMElectrolyzer(fs)
+    fs.fix(pem.v("electricity"), 5000.0)
+    fs.fix(pem.outlet_state.temperature, 300.0)
+    fs.fix(pem.outlet_state.pressure, 101325.0)
+    sol = solve("PEM 5 MW", fs)
+    near("outlet flow mol/s", sol["pem.outlet.flow_mol"][0], 5000 * 0.002527406, 1e-8)
+
+    fs = Flowsheet(horizon=1)
+    tank = SimpleHydrogenTank(fs)
+    tank.inlet_state.fix_state(flow_mol=25, temperature=300, pressure=101325)
+    fs.fix(tank.v("tank_holdup_previous"), 0)
+    fs.fix(tank.pipeline_state.flow_mol, 10)
+    fs.fix(tank.turbine_state.flow_mol, 10)
+    sol = solve("simple tank", fs)
+    near("holdup mol", sol["h2_tank.tank_holdup"][0], 3600 * 5, 1e-6)
+    near("pipeline outlet K", sol["h2_tank.outlet_to_pipeline.temperature"][0], 300.0, 1e-6)
+    near("turbine outlet Pa", sol["h2_tank.outlet_to_turbine.pressure"][0], 101325.0, 1e-6)
+
+    for label, out_flow, anchors in (
+            ("detailed tank filling", 0.0, (3600.0945, 300.749, 3820683416.393)),
+            ("detailed tank emptying", 0.9, (360.0945, 300.055, 381276651.957))):
+        fs = Flowsheet(horizon=1)
+        tank = HydrogenTank(fs, name="unit")
+        fs.fix(tank.v("tank_diameter"), 0.1)
+        fs.fix(tank.v("tank_length"), 0.3)
+        fs.fix(tank.v("previous_temperature"), 300)
+        fs.fix(tank.v("previous_pressure"), 1e5)
+        tank.inlet_state.fix_state(flow_mol=1, temperature=300, pressure=3e6)
+        fs.fix(tank.outlet_state.flow_mol, out_flow)
+        fs.set_init(tank.v("material_holdup"), 3600 * (1 - out_flow))
+        fs.set_init(tank.v("pressure"), 3e9 * max(1 - out_flow, 0.1))
+        sol = solve(label, fs)
+        near("holdup mol", sol["unit.material_holdup"][0], anchors[0], 1e-3)
+        near("temperature K", sol["unit.temperature"][0], anchors[1], 1e-3)
+        near("pressure Pa", sol["unit.pressure"][0], anchors[2], 1e-2)
+
+    fs = Flowsheet(horizon=1)
+    turb = HydrogenTurbine(fs)
+    y_in = {"oxygen": 0.188, "argon": 0.003, "nitrogen": 0.702, "water": 0.022,
+            "hydrogen": 0.085}
+    comps = turb.props.components
+    fs.fix(turb.inlet_state.flow_mol_comp, np.array([[y_in[c] * 4135.2 for c in comps]]))
+    fs.fix(turb.inlet_state.temperature, 288.15)
+    fs.fix(turb.inlet_state.pressure, 101325)
+    fs.fix(turb.v("compressor.deltaP"), 2.401e6)
+    fs.fix(turb.v("compressor.efficiency_isentropic"), 0.86)
+    fs.fix(turb.v("reactor.conversion"), 0.99)
+    fs.fix(turb.v("turbine.deltaP"), -2.401e6)
+    fs.fix(turb.v("turbine.efficiency_isentropic"), 0.89)
+    t0 = time.perf_counter()
+    turb.initialize()
+    print(f"[h2-units] turbine initialize() (host bisections): "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    sol = solve("hydrogen turbine", fs, max_iter=300)
+    near("compressor outlet K", sol["h2_turbine.compressor.outlet.temperature"][0], 763.25, 2e-2)
+    fc_out = sol["h2_turbine.reactor.outlet.flow_mol_comp"][0]
+    y_out = dict(zip(comps, fc_out / fc_out.sum()))
+    for c, want, rel in (("hydrogen", 0.00085, 5e-2), ("nitrogen", 0.73285, 1e-2),
+                         ("oxygen", 0.15232, 1e-2), ("water", 0.11085, 1e-2),
+                         ("argon", 0.0031318, 1e-2)):
+        near(f"reactor outlet y_{c}", y_out[c], want, rel)
+    near("reactor outlet K", sol["h2_turbine.reactor.outlet.temperature"][0], 1426.3, 2e-2)
+    near("turbine outlet K", sol["h2_turbine.outlet.temperature"][0], 726.44, 2e-2)
+    w_t = float(sol["h2_turbine.turbine.work_mechanical"][0])
+    w_c = float(sol["h2_turbine.compressor.work_mechanical"][0])
+    print(f"[h2-units]   work W: compressor {w_c:.6g}, turbine {w_t:.6g}, net {w_c + w_t:.6g}")
+    check(w_t < 0 and w_c + w_t < 0, "[h2-units] turbine work signs")
+
+
+def pem_optimize(torch, dev):
+    """``wind_battery_pem_optimize`` at T = 24 and 168, each against HiGHS
+    on the port's own LP data."""
+    from dispatches_tpu_torch.case_studies.renewables import wind_battery_pem_optimize
+
+    for T_p in (H2_T, H2_T_LONG):
+        out = design_vs_highs(torch, dev, "pem", wind_battery_pem_optimize, T_p, _h2_params(T_p))
+        print(f"[pem]   pem_kw={float(out.solution['pem_system_capacity']):.3f}")
+
+
+def pem_batch(torch, dev, pem):
+    """bench.py's nlp_pem24h: 32 LMP lanes through the IPM (max_iter 200;
+    the process is warm from ``pem_batch_model``'s solve of the same
+    model); status-0 lanes against HiGHS."""
+    from dispatches_tpu_torch.solvers import IPMOptions, make_ipm_solver
+
+    nlp, lp, lmps = pem["nlp"], pem["lp"], pem["lmps"][:PEM_BATCH]
+    solver = make_ipm_solver(nlp, IPMOptions(max_iter=200), device=dev)
+    params = _pem_params(torch, nlp, lmps, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = solver(params)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    obj = res.obj.cpu().numpy()
+    check(obj.shape == (PEM_BATCH,) and np.all(np.isfinite(obj)), "[pem-batch] objectives not finite")
+    st, it, line = _lanes_line(res)
+    ok = np.nonzero(st == 0)[0]
+    check(ok.size > 0, "[pem-batch] no lane reached status 0")
+    ref = np.asarray([highs_objective(torch, nlp, lp, _pem_params(torch, nlp, lmps[s]),
+                                      f"pem-batch lane {s}") for s in ok])
+    err = np.abs(obj[ok] - ref) / np.maximum(np.abs(ref), 1.0)
+    print(f"[pem-batch] B={PEM_BATCH} {line} converged share {float(res.converged.float().mean()):.4f} "
+          f"solve {dt * 1e3:.1f} ms solves/s={PEM_BATCH / dt:.1f} "
+          f"peak_mem={torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; status-0 lanes "
+          f"{ok.size}: obj_rel_err_vs_highs max {err.max():.3e}")
+    check(err.max() <= IPM_RTOL, f"[pem-batch] objective error {err.max():.3e} > {IPM_RTOL}")
+
+
+def pem_pdlp(torch, dev, pem):
+    """[pem-batch]'s LMPs widened to 366 lanes through the batch PDLP
+    (halpern, f32, tol 1e-5) on the CUDA sweeps; 16 objectives against
+    HiGHS (reported, not required)."""
+    from dispatches_tpu_torch.kernels import pdhg_sweep as ks
+    from dispatches_tpu_torch.solvers import BatchPDLPOptions, make_pdlp_batch_solver
+
+    nlp, lp, lmps = pem["nlp"], pem["lp"], pem["lmps"]
+    solver = make_pdlp_batch_solver(nlp, BatchPDLPOptions(tol=1e-5, dtype="float32"),
+                                    lp_data=lp, device=dev)
+    params = _pem_params(torch, nlp, lmps, dev)
+    before = ks.halpern_sweep.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solver(params)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = ks.halpern_sweep.launches - before
+    obj = res.obj.cpu().numpy()
+    iters = res.iters.cpu().numpy()
+    check(obj.shape == (N_SCENARIOS,) and np.all(np.isfinite(obj)),
+          "[pem-pdlp] objectives not finite")
+    check(launches > 0, "[pem-pdlp] the halpern kernel was never launched")
+    ref = np.asarray([highs_objective(torch, nlp, lp, _pem_params(torch, nlp, lmps[s]),
+                                      f"pem-pdlp lane {s}") for s in range(N_HIGHS)])
+    err = np.abs(obj[:N_HIGHS] - ref) / np.maximum(np.abs(ref), 1.0)
+    print(f"[pem-pdlp] halpern f32 B={N_SCENARIOS} converged={float(res.converged.float().mean()):.4f} "
+          f"iters_mean={iters.mean():.1f} iters_max={iters.max()} solves/s={N_SCENARIOS / dt:.1f} "
+          f"({dt * 1e3:.1f} ms) launches={launches} obj_rel_err_vs_highs({N_HIGHS}) max "
+          f"{err.max():.3e} (reported, not required)")
+
+
+def hybrid(torch, dev):
+    """``wind_battery_pem_tank_turb_optimize`` at T = 24 on the structured
+    KKT path (the path ``kkt="auto"`` takes), converged and held to
+    tests/test_re_pem_hybrid.py's structural checks (tank balance, air/H2
+    ratio, work signs).  Returns the model for ``hybrid_paths``."""
+    from dispatches_tpu_torch.case_studies.renewables import load_parameters as re_lp
+    from dispatches_tpu_torch.case_studies.renewables import wind_battery_pem_tank_turb_optimize
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = wind_battery_pem_tank_turb_optimize(H2_T, _h2_params(H2_T, kkt="structured"),
+                                              device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    nlp, res, sol = out.nlp, out.res, out.solution
+    check(bool(torch.isfinite(res.x).all()), "[hybrid] iterate not finite")
+    net_in = (sol["h2_tank.inlet.flow_mol"] - sol["h2_tank.outlet_to_pipeline.flow_mol"]
+              - sol["h2_tank.outlet_to_turbine.flow_mol"]) * 3600.0
+    holdup = sol["h2_tank.tank_holdup"]
+    prev = np.concatenate([[float(sol["h2_tank.tank_holdup_previous"])], holdup[:-1]])
+    balance = float(np.max(np.abs(holdup - prev - net_in)))
+    h2 = re_lp.air_h2_ratio * (sol["mixer.purchased_hydrogen_feed.flow_mol"]
+                               + sol["mixer.hydrogen_feed.flow_mol"])
+    ratio = float(np.max(np.abs(sol["mixer.air_feed.flow_mol"] - h2) / np.abs(h2)))
+    w_c = sol["h2_turbine.compressor.work_mechanical"]
+    w_t = sol["h2_turbine.turbine.work_mechanical"]
+    print(f"[hybrid] kkt=structured T={H2_T} n={nlp.n} m_eq={nlp.m_eq} m_ineq={nlp.m_ineq} "
+          f"NPV={out.npv:.2f} battery_kw={out.battery_power_kw:.3f} "
+          f"pem_kw={float(sol['pem_system_capacity']):.3f} "
+          f"tank_mol={float(sol['h2_tank_size']):.3f} "
+          f"turbine_kw={float(sol['turb_system_capacity']):.3f} status {int(res.status)} "
+          f"iterations {int(res.iterations)} kkt_error {float(res.kkt_error):.3e} "
+          f"wall {dt * 1e3:.1f} ms (build included); tank balance max {balance:.3e} mol, "
+          f"air/H2 ratio max rel {ratio:.3e}, compressor work min {w_c.min():.6g}, "
+          f"turbine work max {w_t.max():.6g}")
+    check(out.converged, f"[hybrid] not converged (status {int(res.status)})")
+    check(balance <= 1e-3, f"[hybrid] tank mass balance off by {balance:.3e}")
+    check(ratio <= 1e-5, f"[hybrid] air/H2 ratio off by {ratio:.3e}")
+    check(np.all(w_c >= -1e-6) and np.all(w_t <= 1e-6), "[hybrid] work signs")
+    return nlp
+
+
+def hybrid_paths(torch, dev, nlp):
+    """[hybrid-trace]: the structured path's first HYB_TRACE_ITERS Newton
+    iterations under torch.profiler (idle share, launches per iteration,
+    top ten; a whole solve would record millions of launches, and its
+    iterations are alike).  [hybrid-dense]: the first Newton iteration
+    on both KKT paths, whose primal iterates agree within HYB_STEP_RTOL.
+    Their multipliers need not: J is rank-deficient, and each path's
+    regularization sets the null-space part of lam, which enters W from
+    the second iteration on.  The paths part there, and from the default
+    start the dense one does not converge on this model (status 2 after
+    500 iterations, in the JAX package too: tests/test_torch_re_hybrid.py,
+    slow)."""
+    from dispatches_tpu_torch.solvers import IPMOptions, make_ipm_solver
+
+    params = nlp.default_params()
+    solver = make_ipm_solver(nlp, IPMOptions(max_iter=HYB_TRACE_ITERS, kkt="structured"),
+                             device=dev)
+    res, _, by_name, total, window = profile_run(
+        torch, lambda: solver(params), f"[hybrid-trace] structured T={H2_T}")
+    check(bool(torch.isfinite(res.x).all()), "[hybrid-trace] iterate not finite")
+    iters = int(res.iterations)
+    if by_name:
+        launches = sum(n for n, _ in by_name.values())
+        print(f"[hybrid-trace] {launches} device launches over {iters} Newton iterations: "
+              f"{launches / iters:.1f} per iteration, {total / 1e3 / iters:.3f} ms device time "
+              f"per iteration, {window / 1e3 / iters:.3f} ms of window per iteration")
+    step = {}
+    for kkt in ("structured", "dense"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step[kkt] = make_ipm_solver(nlp, IPMOptions(max_iter=1, kkt=kkt), device=dev)(params)
+        torch.cuda.synchronize()
+        print(f"[hybrid-dense] kkt={kkt}: one Newton iteration in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms (solver set-up included)")
+        check(bool(torch.isfinite(step[kkt].x).all()), f"[hybrid-dense] {kkt}: iterate not finite")
+    s, d = step["structured"], step["dense"]
+    x_rel = float((d.x - s.x).abs().max() / s.x.abs().max())
+    lam_rel = float((d.lam - s.lam).abs().max() / s.lam.abs().max())
+    print(f"[hybrid-dense] dense vs structured after one iteration: iterate max rel {x_rel:.3e}, "
+          f"multipliers max rel {lam_rel:.3e} (not required)")
+    check(x_rel <= HYB_STEP_RTOL,
+          f"[hybrid-dense] the KKT paths' first steps differ by {x_rel:.3e} > {HYB_STEP_RTOL}")
+
+
+def phase_hydrogen(torch, dev, pem):
+    """Phase 6, with the sweep kernels' counts set to 0 before and read
+    after: the hybrid's IPM path launches neither; [pem-pdlp] runs the
+    batch PDLP on the PEM operator."""
+    from dispatches_tpu_torch.kernels import pdhg_sweep as ks
+
+    ks.avg_sweep.launches = 0
+    ks.halpern_sweep.launches = 0
+    t0 = time.perf_counter()
+    h2_units(torch, dev)
+    pem_optimize(torch, dev)
+    pem_batch(torch, dev, pem)
+    pem_pdlp(torch, dev, pem)
+    hybrid_paths(torch, dev, hybrid(torch, dev))
+    print(f"[phase6] {time.perf_counter() - t0:.1f} s; sweep kernel launches during it: "
+          f"halpern {ks.halpern_sweep.launches}, avg {ks.avg_sweep.launches} "
+          "(all from [pem-pdlp])")
+
+
 def main():
     import torch
 
@@ -1112,9 +1477,13 @@ def main():
     # before any comparison launch
     dev = torch.device("cuda")
     main_run, launches = phase_main_path(torch, dev)
-    report = phase_kernels(torch, main_run["lp"], dev)
+    # the PEM price-taker's LP (an IPM design solve; no sweep launch):
+    # phase 3 holds the kernels on its operator, phase 6 solves it
+    pem = pem_batch_model(torch, dev)
+    report = phase_kernels(torch, main_run["lp"], dev, pem["lp"])
     entry_run = phase_ipm_path(torch, dev, main_run)
     phase_serve_path(torch, dev, main_run, entry_run)
+    phase_hydrogen(torch, dev, pem)
 
     replaces = {"halpern": "dispatches_tpu/solvers/pdlp_batch.py:196",
                 "avg": "dispatches_tpu/solvers/pdlp_batch.py:80"}

@@ -8,7 +8,9 @@ and compile cache on as a side effect).
 
 Device rule: the entry points (``make_lp_data``, the PDLP and IPM solver
 builders, ``detect_time_structure``, ``make_structured_kkt``,
-``SolverFactory``, ``wind_battery_optimize``, ``entry.entry``,
+``SolverFactory``, ``wind_battery_optimize``,
+``wind_battery_pem_optimize``, ``wind_battery_pem_tank_turb_optimize``,
+``entry.entry``,
 ``SolveService``, ``ExecutionPlan`` via ``PlanOptions.device``,
 ``learn.fit``) run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no ``device=`` they raise instead of carrying on quietly
@@ -21,7 +23,12 @@ its two PDHG sweep kernels in ``csrc/pdhg_sweep.cu``); the interior-point
 path (the IPM with its dense and structured KKT solves,
 ``wind_battery_optimize`` and ``entry``); the PDLP solver with an
 optional lane axis and ``SolverFactory``; the serve path (``serve``,
-``plan``, ``learn``, ``obs``, ``faults``).
+``plan``, ``learn``, ``obs``, ``faults``); the hydrogen hybrid (the
+ideal-gas and H2-combustion property packages, the PEM electrolyzer,
+simple and detailed hydrogen tanks, translator, mixer, hydrogen turbine
+and PV models, every ``create_model`` branch, the unit ``report()``
+tables, ``wind_battery_pem_optimize`` and
+``wind_battery_pem_tank_turb_optimize``).
 """
 
 import torch

@@ -1,5 +1,7 @@
-"""Renewables case study: the wind + battery price-taker (the PEM, tank,
-turbine and double-loop studies are not ported yet)."""
+"""Renewables case study: the wind + battery price-taker, the wind +
+battery + PEM price-taker and the full hybrid (wind + battery + PEM +
+hydrogen tank + hydrogen turbine) price-taker.  The double-loop market
+study is not ported yet."""
 
 from dispatches_tpu_torch.case_studies.renewables.flowsheet import create_model
 from dispatches_tpu_torch.case_studies.renewables.wind_battery_lmp import (
@@ -8,6 +10,16 @@ from dispatches_tpu_torch.case_studies.renewables.wind_battery_lmp import (
     wind_battery_optimize,
     wind_battery_pricetaker_nlp,
 )
+from dispatches_tpu_torch.case_studies.renewables.wind_battery_pem_lmp import (
+    wind_battery_pem_model,
+    wind_battery_pem_optimize,
+)
+from dispatches_tpu_torch.case_studies.renewables.wind_battery_pem_tank_turbine_lmp import (
+    wind_battery_pem_tank_turb_nlp,
+    wind_battery_pem_tank_turb_optimize,
+)
 
 __all__ = ["PriceTakerResult", "create_model", "wind_battery_model",
-           "wind_battery_optimize", "wind_battery_pricetaker_nlp"]
+           "wind_battery_optimize", "wind_battery_pricetaker_nlp",
+           "wind_battery_pem_model", "wind_battery_pem_optimize",
+           "wind_battery_pem_tank_turb_nlp", "wind_battery_pem_tank_turb_optimize"]

@@ -6,7 +6,8 @@ length ``horizon``; constraints are residual callables ``fn(v, p)`` on
 torch tensors, evaluated vectorized over that axis, and time coupling is
 a shifted-slice equality (:func:`tshift`).  ``Flowsheet.fix`` removes a
 variable from the decision vector and injects its value through the
-params dict.  The unit ``report()`` tables are not ported yet.
+params dict.  Every unit writes its ``report()`` stream table from a
+solution dict, as the JAX package's units do, byte for byte.
 """
 
 from __future__ import annotations
@@ -272,6 +273,116 @@ class UnitModel:
 
     def port(self, local: str) -> Port:
         return self.ports[local]
+
+    # ---- operator-facing stream-table report -----------------------
+
+    def report_columns(self, solution) -> Dict[str, Dict[str, object]]:
+        """Hook for extra non-port report columns, keyed
+        ``{column: {row_label: value-or-varname}}``.  Values that are
+        strings are looked up in ``solution`` (and time-sliced) by
+        :meth:`report`; anything else is printed as-is.  Subclasses
+        override it (the battery's ``"kWh"`` state column, tank
+        holdups, ...)."""
+        return {}
+
+    def _report_value(self, solution, ref, time_point: int):
+        if isinstance(ref, str):
+            if ref in solution:
+                val = solution[ref]
+                val = (val.detach().cpu().numpy() if isinstance(val, torch.Tensor)
+                       else np.asarray(val))
+            elif ref in self.fs.params:
+                val = np.asarray(self.fs.params[ref])
+            else:
+                return None
+        else:
+            return ref
+        if val.ndim >= 1 and val.shape[0] == self.fs.horizon:
+            val = val[time_point]
+        if val.ndim == 0:
+            return float(val)
+        return np.asarray(val)
+
+    def report(self, solution, time_point: int = 0, dof: bool = False,
+               ostream=None, prefix: str = "") -> str:
+        """Write the unit's stream table at ``time_point`` from a solved
+        variable dict (``nlp.unravel(result.x)``; tensor values are read
+        back to the host) and return it.
+
+        Layout: an 84-char banner, optional model statistics under
+        ``dof=True``, then one column per port (plus any
+        :meth:`report_columns` extras) with one row per stream member.
+        The report is a pure function of (model, solution)."""
+        import io
+        import sys
+
+        out = ostream if ostream is not None else sys.stdout
+        buf = io.StringIO()
+
+        cols: Dict[str, Dict[str, object]] = {}
+        for local, port in self.ports.items():
+            col = {}
+            for member, varname in port.keys.items():
+                v = self._report_value(solution, varname, time_point)
+                if v is not None:
+                    col[member] = v
+            if col:
+                cols[local] = col
+        for cname, rows in self.report_columns(solution).items():
+            col = {}
+            for label, ref in rows.items():
+                v = self._report_value(solution, ref, time_point)
+                if v is not None:
+                    col[label] = v
+            if col:
+                cols[cname] = col
+
+        width = 84
+        tab = " " * 4
+        lead = f"{prefix}Unit : {self.name}"
+        trail = f"Time: {time_point}"
+        buf.write("\n" + "=" * width + "\n")
+        buf.write(lead + " " * max(width - len(lead) - len(trail), 1)
+                  + trail)
+        if dof:
+            n_vars = sum(
+                int(np.prod(s.shape)) if s.shape else 1
+                for n, s in self.fs.var_specs.items()
+                if n.startswith(self.name + ".")
+            )
+            n_cons = sum(1 for c in self.fs.constraints
+                         if c.name.startswith(self.name + "."))
+            buf.write("\n" + "=" * width + "\n")
+            buf.write(f"{prefix}{tab}Local Variable Elements: {n_vars}"
+                      f"{tab}Local Constraints Declared: {n_cons}")
+        if cols:
+            rows = []
+            for col in cols.values():
+                rows.extend(k for k in col if k not in rows)
+            colw = {c: max(len(c), 12) for c in cols}
+            keyw = max((len(r) for r in rows), default=0) + 2
+            buf.write("\n" + "-" * width + "\n")
+            buf.write(f"{prefix}{tab}Stream Table\n")
+            head = " " * keyw + "".join(
+                f"{c:>{colw[c] + 2}}" for c in cols)
+            buf.write(prefix + tab + head + "\n")
+            for r in rows:
+                cells = []
+                for c, col in cols.items():
+                    v = col.get(r)
+                    if v is None:
+                        s = "-"
+                    elif isinstance(v, float):
+                        s = f"{v:.5g}"
+                    else:
+                        s = str(v)
+                    cells.append(f"{s:>{colw[c] + 2}}")
+                buf.write(prefix + tab + f"{r:<{keyw}}"
+                          + "".join(cells) + "\n")
+        buf.write("=" * width + "\n")
+        text = buf.getvalue()
+        out.write(text)
+        return text
 
 
 def tshift(arr: torch.Tensor, initial: torch.Tensor) -> torch.Tensor:

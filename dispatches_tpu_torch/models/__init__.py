@@ -1,8 +1,19 @@
-"""Unit models of the port: those the wind+battery main path uses.  The
-other models of ``dispatches_tpu.models`` are not ported yet."""
+"""Unit models of the port (counterpart of ``dispatches_tpu.models``):
+the wind, PV, battery, splitter, PEM electrolyzer, simple and detailed
+hydrogen tanks, translator, mixer and hydrogen turbine.  The fossil
+models (``heat_exchanger_tube.py``, ``concrete_tes.py``, ...) wait for
+the fossil slice."""
 
+from dispatches_tpu_torch.models.base import StateBundle
 from dispatches_tpu_torch.models.battery import BatteryStorage
 from dispatches_tpu_torch.models.elec_splitter import ElectricalSplitter
+from dispatches_tpu_torch.models.hydrogen_tank import HydrogenTank
+from dispatches_tpu_torch.models.hydrogen_tank_simplified import SimpleHydrogenTank
+from dispatches_tpu_torch.models.hydrogen_turbine import HydrogenTurbine
+from dispatches_tpu_torch.models.mixer import Mixer
+from dispatches_tpu_torch.models.pem_electrolyzer import PEMElectrolyzer
+from dispatches_tpu_torch.models.solar_pv import SolarPV
+from dispatches_tpu_torch.models.translator import Translator
 from dispatches_tpu_torch.models.wind_power import (
     WindPower,
     atb2018_capacity_factors,
@@ -12,6 +23,9 @@ from dispatches_tpu_torch.models.wind_power import (
 )
 
 __all__ = [
+    "Translator",
+    "Mixer",
+    "StateBundle",
     "BatteryStorage",
     "ElectricalSplitter",
     "WindPower",
@@ -19,4 +33,9 @@ __all__ = [
     "sam_pdf_capacity_factors",
     "sam_weibull_capacity_factors",
     "sam_windpower_capacity_factors",
+    "SolarPV",
+    "PEMElectrolyzer",
+    "SimpleHydrogenTank",
+    "HydrogenTank",
+    "HydrogenTurbine",
 ]

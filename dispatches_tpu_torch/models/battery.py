@@ -62,3 +62,16 @@ class BatteryStorage(UnitModel):
 
         self.add_port("power_in", {"electricity": ein})
         self.add_port("power_out", {"electricity": eout})
+
+    def report_columns(self, solution):
+        """The battery report's ``kWh`` state column."""
+        return {
+            "kWh": {
+                "initial_state_of_charge":
+                    self.v("initial_state_of_charge"),
+                "initial_energy_throughput":
+                    self.v("initial_energy_throughput"),
+                "state_of_charge": self.v("state_of_charge"),
+                "energy_throughput": self.v("energy_throughput"),
+            }
+        }

@@ -160,12 +160,23 @@ def test_capacity_factors_bitwise(fn):
 @pytest.mark.parametrize("kw", [{"pem_bar": 1.0}, {"tank_type": "simple"},
                                 {"turb_inlet_bar": 1.0}, {"re_type": "pv"}])
 def test_unported_branches_raise(kw):
+    """The PEM, tank, turbine and PV branches that raised until the
+    hydrogen slice now build as the JAX package's do: the same units,
+    constraints and layout (a turbine without a tank, as there, adds
+    nothing)."""
+    from dispatches_tpu.case_studies.renewables.flowsheet import create_model as j_create_model
+
     args = dict(re_mw=1.0, pem_bar=None, batt_mw=1.0, tank_type=None,
                 tank_length_m=None, turb_inlet_bar=None, horizon=2,
                 capacity_factors=np.ones(2))
     args.update(kw)
-    with pytest.raises(ValueError, match="not ported"):
-        create_model(**args)
+    got, want = create_model(**args), j_create_model(**args)
+    assert list(got.units) == list(want.units)
+    assert [c.name for c in got.fs.constraints] == [c.name for c in want.fs.constraints]
+    tn, jn = got.fs.compile(), want.fs.compile()
+    assert (tn.n, tn.m_eq, tn.m_ineq) == (jn.n, jn.m_eq, jn.m_ineq)
+    assert tn.free_names == jn.free_names
+    np.testing.assert_array_equal(tn.x0, np.asarray(jn.x0))
 
 
 def test_make_lp_data_needs_cuda_or_explicit_cpu(pair):
