@@ -25,14 +25,15 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    the sweep kernels' counts are read around it to show so):
    ``[entry]`` ``entry()`` over its 8 LMP lanes, status-0 objectives
    within 1e-6 of HiGHS; ``[ipm]`` the phase-2 model at B = 366,
-   max_iter 300, on the structured (``kkt="auto"``) and the dense KKT
-   path, 16 lanes within 1e-6 of HiGHS; ``[ipm-trace]`` one warmed
+   max_iter 300, on the structured KKT path (``kkt="auto"``; the dense
+   B = 366 run is cut for phase 7's time), 16 lanes within 1e-6 of HiGHS; ``[ipm-trace]`` one warmed
    structured B = 366 solve under torch.profiler; ``[pdlp1]`` the
    per-scenario PDLP solver on 4 scenarios (halpern f32 tol 1e-5; f64
    tol 1e-8 with the polish); ``[factory]`` ``SolverFactory("ipopt")``
    and ``("cbc")`` on a storage LP, and ``cbc``'s IPM fallback on a
    non-affine model; ``[optimize]`` ``wind_battery_optimize`` at T = 24
-   and T = 168 with the battery size free, against HiGHS;
+   (T = 168 is cut for phase 7's time) with the battery size free,
+   against HiGHS;
 5. the serve path (``SolveService`` over ``ExecutionPlan``, float64 PDLP
    with a lane axis; no hand-written kernel, the sweep kernels' counts are
    read around it): ``[serve-demo]`` ``python -m dispatches_tpu_torch.serve
@@ -53,11 +54,26 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    status-0 lanes against HiGHS; ``[pem-pdlp]`` its LMPs widened to 366
    lanes through the batch PDLP on the CUDA sweeps (phase 3 also holds
    both kernels on this operator); ``[hybrid]`` the full hybrid (wind +
-   battery + PEM + tank + turbine) at T = 24 on the structured KKT path,
+   battery + PEM + tank + turbine) at T = 12 (T = 24 is cut for phase 7's
+   time) on the structured KKT path,
    converged, with the tank balance, the air/H2 ratio and the work signs;
    ``[hybrid-trace]`` its first 15 Newton iterations under torch.profiler;
    ``[hybrid-dense]`` the first Newton iteration on the dense KKT path,
-   its primal iterate within 1e-6 of the structured path's.
+   its primal iterate within 1e-6 of the structured path's;
+7. the double loop and the nuclear case (float64 IPM; the sweep kernels'
+   counts are read around it): ``[ne]`` the nuclear price-taker of
+   tests/test_ne_multiperiod.py (T = 4, h2 price 3, max_iter 600) at LMP
+   500 (LMP 5's 600-iteration cold start is cut for time), converged, tank
+   balanced, dear power to the grid; ``[double-loop]`` the port's ``run_double_loop`` for
+   one day on a synthetic RTS-GMLC-size case written from a seed (73
+   buses, 120 branches, 73 thermal and 81 renewable units,
+   ``write_synthetic_rts``) at ``DoubleLoopOptions``' defaults: every
+   bidder, tracker and dispatch solve converged, every bid curve
+   non-decreasing, the output files complete; ``[market]`` its DA LP and
+   4 SCED hours within 1e-6 of HiGHS on the same LPs, no load shed;
+   ``[bid-batch]`` 7 bid days as one lane axis equal to 7 sequential
+   solves within 1e-6; ``[dl-trace]`` one warmed market hour under
+   torch.profiler.
 
 Phase 3 times every kernel tier at B = 366, 1024 and 4096.  The line
 before the last is a JSON summary of the kernels; the last line
@@ -116,7 +132,9 @@ def scenarios(n, rng):
 # phase 1: device and build
 # ---------------------------------------------------------------------
 
-def phase_device(torch):
+def phase_device_info(torch):
+    """Print the card's name and power limit (nvidia-smi) and the versions;
+    return the nvidia-smi line."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -129,7 +147,11 @@ def phase_device(torch):
     # sweeps): TF32 would floor PDLP's accuracy
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return card
 
+
+def phase_device(torch):
+    card = phase_device_info(torch)
     from dispatches_tpu_torch.kernels import pdhg_sweep
 
     t0 = time.perf_counter()
@@ -659,8 +681,8 @@ def phase_entry(torch, dev):
 
 
 def phase_ipm(torch, dev, main_run):
-    """The phase-2 model at B = 366, max_iter 300, both KKT paths; returns
-    the structured solver and its params for the trace."""
+    """The phase-2 model at B = 366, max_iter 300, on the structured KKT
+    path; returns the solver and its params for the trace."""
     from dispatches_tpu_torch.solvers import IPMOptions, make_ipm_solver
 
     nlp, lmps, cfs = main_run["nlp"], main_run["lmps"], main_run["cfs"]
@@ -670,7 +692,10 @@ def phase_ipm(torch, dev, main_run):
                     "windpower.capacity_factor": torch.as_tensor(cfs, device=dev)},
               "fixed": d["fixed"]}
     out = None
-    for kkt in ("auto", "dense"):
+    # the dense-KKT B = 366 run (14.4 s in PR 5) is cut to make room for
+    # phase 7; the dense path still runs in [entry], [hybrid-dense] and
+    # every dispatch LP of phase 7
+    for kkt in ("auto",):
         solver = make_ipm_solver(nlp, IPMOptions(max_iter=300, kkt=kkt), device=dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -806,7 +831,8 @@ def design_vs_highs(torch, dev, tag, optimize, T_opt, params):
 def phase_optimize(torch, dev):
     from dispatches_tpu_torch.case_studies.renewables import wind_battery_optimize
 
-    for T_opt in (24, 168):
+    # T = 168 (28.1 s in PR 5) is cut to make room for phase 7
+    for T_opt in (24,):
         design_vs_highs(torch, dev, "optimize", wind_battery_optimize, T_opt, {
             "wind_mw": 100, "batt_mw": 10, "capacity_factors": np.full(T_opt, 0.5),
             "DA_LMPs": np.where(np.arange(T_opt) % 24 < 12, 5.0, 100.0),
@@ -1134,6 +1160,10 @@ def phase_serve_path(torch, dev, main_run, entry_run):
 # ---------------------------------------------------------------------
 
 H2_T = 24            # tests/test_re_pem_hybrid.py's horizon
+# [hybrid]'s horizon: T = 24 (188.6 s in PR 5) is cut to 12 to make room for
+# phase 7 (it converges there: 162 iterations on the CPU with
+# `python3 tools/cpu_rehearsal.py phase6 hybrid`)
+HYB_T = 12
 H2_T_LONG = 168      # [pem]'s second horizon: the same formulas over a week
 PEM_BATCH = 32       # [pem-batch]: bench.py's nlp_pem24h lanes
 HYB_TRACE_ITERS = 15   # [hybrid-trace]: Newton iterations under the profiler
@@ -1359,7 +1389,7 @@ def pem_pdlp(torch, dev, pem):
 
 
 def hybrid(torch, dev):
-    """``wind_battery_pem_tank_turb_optimize`` at T = 24 on the structured
+    """``wind_battery_pem_tank_turb_optimize`` at T = HYB_T on the structured
     KKT path (the path ``kkt="auto"`` takes), converged and held to
     tests/test_re_pem_hybrid.py's structural checks (tank balance, air/H2
     ratio, work signs).  Returns the model for ``hybrid_paths``."""
@@ -1368,7 +1398,7 @@ def hybrid(torch, dev):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = wind_battery_pem_tank_turb_optimize(H2_T, _h2_params(H2_T, kkt="structured"),
+    out = wind_battery_pem_tank_turb_optimize(HYB_T, _h2_params(HYB_T, kkt="structured"),
                                               device=dev)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -1384,7 +1414,7 @@ def hybrid(torch, dev):
     ratio = float(np.max(np.abs(sol["mixer.air_feed.flow_mol"] - h2) / np.abs(h2)))
     w_c = sol["h2_turbine.compressor.work_mechanical"]
     w_t = sol["h2_turbine.turbine.work_mechanical"]
-    print(f"[hybrid] kkt=structured T={H2_T} n={nlp.n} m_eq={nlp.m_eq} m_ineq={nlp.m_ineq} "
+    print(f"[hybrid] kkt=structured T={HYB_T} n={nlp.n} m_eq={nlp.m_eq} m_ineq={nlp.m_ineq} "
           f"NPV={out.npv:.2f} battery_kw={out.battery_power_kw:.3f} "
           f"pem_kw={float(sol['pem_system_capacity']):.3f} "
           f"tank_mol={float(sol['h2_tank_size']):.3f} "
@@ -1418,7 +1448,7 @@ def hybrid_paths(torch, dev, nlp):
     solver = make_ipm_solver(nlp, IPMOptions(max_iter=HYB_TRACE_ITERS, kkt="structured"),
                              device=dev)
     res, _, by_name, total, window = profile_run(
-        torch, lambda: solver(params), f"[hybrid-trace] structured T={H2_T}")
+        torch, lambda: solver(params), f"[hybrid-trace] structured T={HYB_T}")
     check(bool(torch.isfinite(res.x).all()), "[hybrid-trace] iterate not finite")
     iters = int(res.iterations)
     if by_name:
@@ -1463,6 +1493,610 @@ def phase_hydrogen(torch, dev, pem):
           "(all from [pem-pdlp])")
 
 
+# ---------------------------------------------------------------------
+# phase 7: the double loop (bid, clear, track) and the nuclear case
+# ---------------------------------------------------------------------
+
+# RTS-GMLC-like thermal fleet (family, PMax MW, PMin share, avg heat rate
+# BTU/kWh, fuel $/MMBTU, min up h, min down h, ramp MW/min, start heat
+# MBTU): 73 units in RTS-GMLC's families and sizes
+_FLEET = ([("NUCLEAR", 400.0, 0.99, 10500.0, 0.8, 24, 24, 20.0, 0.0)]
+          + [("STEAM", 350.0, 0.40, 9700.0, 2.0, 8, 8, 4.0, 3500.0)] * 3
+          + [("STEAM", 155.0, 0.35, 9900.0, 2.0, 8, 8, 3.0, 1500.0)] * 4
+          + [("STEAM", 76.0, 0.40, 11200.0, 2.0, 8, 4, 2.0, 800.0)] * 4
+          + [("STEAM", 197.0, 0.35, 10300.0, 9.0, 4, 4, 3.0, 1900.0)] * 3
+          + [("STEAM", 100.0, 0.25, 10700.0, 9.0, 4, 4, 7.0, 1000.0)] * 3
+          + [("STEAM", 12.0, 0.20, 12500.0, 9.0, 2, 2, 1.0, 30.0)] * 5
+          + [("CC", 355.0, 0.48, 7500.0, 4.0, 6, 6, 4.0, 1500.0)]
+          + [("CT", 55.0, 0.40, 11000.0, 4.0, 1, 1, 3.7, 100.0)] * 22
+          + [("CT", 20.0, 0.40, 13000.0, 9.0, 1, 1, 3.0, 50.0)] * 27)
+# renewable families and their count shares in RTS-GMLC (81 units)
+_REN = (("WIND", 4, 150.0), ("PV", 25, 60.0), ("RTPV", 31, 12.0), ("HYDRO", 21, 25.0))
+
+
+def write_synthetic_rts(path, n_bus=73, n_branch=120, n_thermal=73, n_renewable=81,
+                        n_days=3, seed=0, start="2020-07-10", participant="4_WIND"):
+    """Write an RTS-GMLC-format directory from ``seed``: ``bus.csv``,
+    ``branch.csv``, ``gen.csv``, ``initial_status.csv`` and hourly
+    ``DAY_AHEAD_``/``REAL_TIME_`` load and renewables CSVs for ``n_days``
+    days from ``start`` (what ``grid/market.py:load_rts_gmlc_case``
+    reads).  Buses 1..n_bus lie in 3 areas (one when n_bus < 6), each bus
+    with an ``MW Load`` share; branches form a connected network with
+    ~10% of them rated tight so that some bind; the thermal
+    fleet takes RTS-GMLC's families (``_FLEET``, spread over it when
+    n_thermal < 73); the renewables are wind, PV, RTPV and hydro by
+    RTS-GMLC's shares, the first wind unit named ``participant`` on bus
+    ``participant``'s prefix.  Returns ``path``."""
+    import pandas as pd
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n_area = 3 if n_bus >= 6 else 1
+    area = np.minimum(np.arange(n_bus) * n_area // n_bus, n_area - 1) + 1
+    bus_ids = np.arange(1, n_bus + 1)
+    share = rng.uniform(0.3, 1.7, n_bus)
+    share[rng.random(n_bus) < 0.2] = 0.0  # some buses carry no load
+    share[0] = max(share[0], 0.5)
+    pd.DataFrame({"Bus ID": bus_ids, "Bus Name": [f"Bus{b}" for b in bus_ids],
+                  "Area": area, "MW Load": np.round(100.0 * share, 2)}).to_csv(
+        path / "bus.csv", index=False)
+
+    # thermal fleet, spread over the RTS-like list
+    pick = [_FLEET[int((i + 0.5) * len(_FLEET) / n_thermal)] for i in range(n_thermal)]
+    th_bus = rng.integers(1, n_bus + 1, n_thermal)
+    th_rows, names = [], []
+    for g, (fam, pmax, pmin_s, hr, fuel, mu, md, ramp, heat) in enumerate(pick):
+        name = f"{th_bus[g]}_{fam}_{g + 1}"
+        names.append(name)
+        hr_incr = hr * np.array([0.85, 0.95, 1.10]) * rng.uniform(0.97, 1.03)
+        th_rows.append({
+            "GEN UID": name, "Bus ID": th_bus[g], "PMax MW": pmax,
+            "PMin MW": round(pmax * pmin_s, 2), "Fuel Price $/MMBTU": fuel,
+            "Output_pct_0": pmin_s, "Output_pct_1": pmin_s + (1 - pmin_s) / 3,
+            "Output_pct_2": pmin_s + 2 * (1 - pmin_s) / 3, "Output_pct_3": 1.0,
+            "HR_avg_0": round(hr * 1.05, 1), "HR_incr_1": round(hr_incr[0], 1),
+            "HR_incr_2": round(hr_incr[1], 1), "HR_incr_3": round(hr_incr[2], 1),
+            "Start Heat Hot MBTU": heat, "Non Fuel Start Cost $": 0.0,
+            "Ramp Rate MW/Min": ramp, "Min Up Time Hr": mu, "Min Down Time Hr": md})
+    cap_th = sum(r["PMax MW"] for r in th_rows)
+
+    # renewables by RTS shares; the participant is the first wind unit
+    counts = [max(1, round(c * n_renewable / 81)) for _, c, _ in _REN]
+    while sum(counts) > n_renewable:  # trim the largest family, never wind
+        counts[1 + int(np.argmax(counts[1:]))] -= 1
+    while sum(counts) < n_renewable:
+        counts[1] += 1
+    p_bus = int(participant.split("_")[0])
+    ren_rows, ren_kind = [], []
+    for (fam, _, size), cnt in zip(_REN, counts):
+        for k in range(cnt):
+            if fam == "WIND" and k == 0:
+                name, b = participant, p_bus
+            else:
+                b = int(rng.integers(1, n_bus + 1))
+                name = f"{b}_{fam}_{k + 1}"
+            scale = cap_th / 5430.0 * size * rng.uniform(0.6, 1.4)
+            ren_rows.append({"GEN UID": name, "Bus ID": b,
+                             "PMax MW": round(scale, 2), "PMin MW": 0.0})
+            ren_kind.append(fam)
+    pd.DataFrame(th_rows + ren_rows).to_csv(path / "gen.csv", index=False)
+
+    # hourly series: a daily load shape per area, renewables by family
+    H = 24 * n_days
+    hours = np.arange(H)
+    start_ts = pd.Timestamp(start)
+    stamp = [start_ts + pd.Timedelta(hours=int(h)) for h in hours]
+    cols = {"Year": [t.year for t in stamp], "Month": [t.month for t in stamp],
+            "Day": [t.day for t in stamp], "Period": [t.hour + 1 for t in stamp]}
+    shape = 0.75 + 0.25 * np.sin(2 * np.pi * (hours - 9) / 24)
+    peak = 0.72 * cap_th
+    a_share = np.array([share[area == a].sum() for a in range(1, n_area + 1)])
+    a_share = a_share / a_share.sum()
+    load_da = np.stack([peak * a_share[a] * shape * rng.uniform(0.97, 1.03, H)
+                        for a in range(n_area)], axis=1)
+    load_rt = load_da * rng.uniform(0.97, 1.03, load_da.shape)
+    for name, arr in (("DAY_AHEAD_load.csv", load_da), ("REAL_TIME_load.csv", load_rt)):
+        pd.DataFrame({**cols, **{str(a + 1): np.round(arr[:, a], 2)
+                                 for a in range(n_area)}}).to_csv(path / name, index=False)
+    sun = np.clip(np.sin(2 * np.pi * (hours % 24 - 6) / 24), 0.0, None)
+    ren_da = {}
+    for row, fam in zip(ren_rows, ren_kind):
+        if fam == "WIND":
+            cf = np.clip(0.45 + 0.3 * np.sin(2 * np.pi * hours / rng.uniform(20, 60)
+                                             + rng.uniform(0, 6)) + 0.1 * rng.standard_normal(H),
+                         0.02, 1.0)
+        elif fam in ("PV", "RTPV"):
+            cf = sun * rng.uniform(0.6, 0.95)
+        else:
+            cf = np.full(H, rng.uniform(0.4, 0.8))
+        ren_da[row["GEN UID"]] = row["PMax MW"] * cf
+    ren_rt = {k: np.clip(v * rng.uniform(0.9, 1.1, H), 0.0, None) for k, v in ren_da.items()}
+    for name, d in (("DAY_AHEAD_renewables.csv", ren_da), ("REAL_TIME_renewables.csv", ren_rt)):
+        pd.DataFrame({**cols, **{k: np.round(v, 3) for k, v in d.items()}}).to_csv(
+            path / name, index=False)
+
+    # initial status: hours in state (negative = off) and output
+    on = np.array([r["Min Up Time Hr"] >= 4 or rng.random() < 0.3 for r in th_rows])
+    init = {n: [float(max(th_rows[g]["Min Up Time Hr"], 1)) if on[g]
+                else -float(max(th_rows[g]["Min Down Time Hr"], 1)),
+                th_rows[g]["PMin MW"] if on[g] else 0.0] for g, n in enumerate(names)}
+    pd.DataFrame(init).to_csv(path / "initial_status.csv", index=False)
+
+    # network: a ring per area, chords, and ties between the areas
+    edges = set()
+    for a in range(1, n_area + 1):
+        b = bus_ids[area == a]
+        for i in range(len(b)):
+            if len(b) > 1:
+                edges.add(tuple(sorted((int(b[i]), int(b[(i + 1) % len(b)])))))
+    for a in range(1, n_area):
+        edges.add((int(bus_ids[area == a][0]), int(bus_ids[area == a + 1][-1])))
+        edges.add((int(bus_ids[area == a][len(bus_ids[area == a]) // 2]),
+                   int(bus_ids[area == a + 1][len(bus_ids[area == a + 1]) // 2])))
+    while len(edges) < n_branch:
+        i, j = sorted(int(v) for v in rng.choice(bus_ids, 2, replace=False))
+        if area[i - 1] == area[j - 1] or rng.random() < 0.1:
+            edges.add((i, j))
+    edges = sorted(edges)[:n_branch] if len(edges) > n_branch else sorted(edges)
+    x = rng.uniform(0.02, 0.2, len(edges))
+    # ratings: every line carries at least the flow bound of a zero
+    # dispatch above pmin (sum_b |PTDF_lb| max(pmin_b, peak load_b)), so
+    # every dispatch LP is feasible (shedding is system-wide), and 1.6x
+    # (~10% of lines: 1.15x) the peak flow of a capacity-proportional
+    # dispatch with every unit on
+    pos = {b: i for i, b in enumerate(bus_ids)}
+    inc = np.zeros((len(edges), n_bus))
+    for li, (i, j) in enumerate(edges):
+        inc[li, pos[i]], inc[li, pos[j]] = 1.0, -1.0
+    bl = 1.0 / x
+    bbus = inc.T @ np.diag(bl) @ inc
+    ptdf = np.zeros((len(edges), n_bus))
+    ptdf[:, 1:] = (np.diag(bl) @ inc[:, 1:]) @ np.linalg.inv(bbus[1:, 1:])
+    bus_load = np.zeros((H, n_bus))
+    for a in range(n_area):
+        wa = np.where(area == a + 1, share, 0.0)
+        bus_load += np.outer(np.maximum(load_da[:, a], load_rt[:, a]),
+                             wa / max(wa.sum(), 1e-12))
+    gen_cap, pmin_b = np.zeros(n_bus), np.zeros(n_bus)
+    for r in th_rows:
+        gen_cap[pos[r["Bus ID"]]] += r["PMax MW"]
+        pmin_b[pos[r["Bus ID"]]] += r["PMin MW"]
+    ren_inj = np.zeros((H, n_bus))
+    for row in ren_rows:
+        ren_inj[:, pos[row["Bus ID"]]] += ren_da[row["GEN UID"]]
+    need = bus_load.sum(1) - ren_inj.sum(1)
+    inj = ren_inj + np.outer(np.maximum(need, 0.0), gen_cap / gen_cap.sum()) - bus_load
+    zero_bound = np.abs(ptdf) @ np.maximum(pmin_b, bus_load.max(0))
+    peak_flow = np.abs(inj @ ptdf.T).max(axis=0)
+    tight = rng.random(len(edges)) < 0.1
+    rating = np.maximum(np.where(tight, 1.15 * peak_flow, 1.6 * peak_flow + 50.0),
+                        1.02 * zero_bound)
+    pd.DataFrame({"UID": [f"L{i + 1}" for i in range(len(edges))],
+                  "From Bus": [e[0] for e in edges], "To Bus": [e[1] for e in edges],
+                  "X": np.round(x, 4), "Cont Rating": np.round(rating, 1)}).to_csv(
+        path / "branch.csv", index=False)
+    return path
+
+
+def sparse_rows(torch, fn, x, rows, chunk=2048):
+    """The Jacobian of ``fn`` at ``x`` (``rows`` outputs) as a scipy CSR
+    matrix, ``chunk`` rows at a time by vmapped VJPs on ``x``'s device."""
+    from scipy.sparse import csr_matrix, vstack
+
+    _, vjp = torch.func.vjp(fn, x)
+    rows_vjp = torch.func.vmap(lambda v: vjp(v)[0])
+    blocks = []
+    for a in range(0, rows, chunk):
+        k = min(chunk, rows - a)
+        basis = torch.zeros((k, rows), dtype=x.dtype, device=x.device)
+        basis[torch.arange(k), a + torch.arange(k)] = 1.0
+        blocks.append(csr_matrix(rows_vjp(basis).cpu().numpy()))
+    return vstack(blocks).tocsr() if blocks else csr_matrix((0, x.shape[0]))
+
+
+def highs_lp(torch, nlp, p, label, device):
+    """HiGHS (scipy ``linprog``) on the affine NLP ``nlp`` at params ``p``:
+    the LP read off the port's own residuals at x = 0 (sparse Jacobians
+    by ``sparse_rows``).  Returns (objective in the user's sense, the
+    result's equality and inequality marginals)."""
+    from scipy.optimize import linprog
+
+    x0 = torch.zeros(nlp.n, dtype=torch.float64, device=device)
+    c = torch.func.grad(lambda x: nlp.objective(x, p))(x0).cpu().numpy()
+    K = sparse_rows(torch, lambda x: nlp.eq(x, p), x0, nlp.m_eq)
+    G = sparse_rows(torch, lambda x: nlp.ineq(x, p), x0, nlp.m_ineq)
+    q = -nlp.eq(x0, p).cpu().numpy()
+    h = -nlp.ineq(x0, p).cpu().numpy()
+    bounds = [(None if not np.isfinite(lo) else lo, None if not np.isfinite(hi) else hi)
+              for lo, hi in zip(nlp.lb, nlp.ub)]
+    res = linprog(c, A_ub=G if G.shape[0] else None, b_ub=h if h.size else None,
+                  A_eq=K if K.shape[0] else None, b_eq=q if q.size else None,
+                  bounds=bounds, method="highs")
+    check(res.status == 0, f"HiGHS failed on {label}: {res.message}")
+    obj = float(nlp.user_objective(torch.as_tensor(res.x, device=device), p))
+    return obj, res.eqlin.marginals, res.ineqlin.marginals
+
+
+# the synthetic RTS-GMLC-size market of phase 7 and its seed
+DL_BUSES, DL_BRANCHES, DL_THERMAL, DL_RENEWABLE, DL_SEED = 73, 120, 73, 81, 7
+DL_OBJ_RTOL = 1e-6      # [market] LP objectives vs HiGHS
+BID_RTOL = 1e-6         # [bid-batch] day batch vs sequential bids
+N_BID_DAYS = 7
+
+
+# [ne] runs at LMP 500 only: LMP 5's stiff cold start (600 iterations,
+# 52.6 s on the card in PR 6 run B) is cut for the script's time; tier 1
+# holds it against JAX (tests/test_torch_nuclear.py)
+NE_LMPS = (500.0,)
+
+
+def ne_price_taker(torch, dev):
+    """[ne]: tests/test_ne_multiperiod.py's recipe (T = 4, h2 price 3,
+    max_iter 600) on the card at ``NE_LMPS``: converged, the tank holdup
+    balanced, and dear power sent to the grid rather than to hydrogen."""
+    from dispatches_tpu_torch.case_studies.nuclear import ne_price_taker_optimize
+
+    for lmp in NE_LMPS:
+        t0 = time.perf_counter()
+        m, nlp, res, sol = ne_price_taker_optimize(4, np.full(4, lmp), h2_price=3.0,
+                                                   max_iter=600, device=dev)
+        torch.cuda.synchronize()
+        print(f"[ne] LMP {lmp:g}: status {int(res.status)}, {int(res.iterations)} iterations, "
+              f"{time.perf_counter() - t0:.2f} s, objective {float(res.obj):.6f}")
+        check(bool(res.converged), f"[ne] the price-taker at LMP {lmp:g} did not converge")
+        holdup = sol["h2_tank.tank_holdup"]
+        prev = np.concatenate([[float(sol["h2_tank.tank_holdup_previous"])], holdup[:-1]])
+        net_in = (sol["h2_tank.inlet.flow_mol"] - sol["h2_tank.outlet_to_pipeline.flow_mol"]
+                  - sol["h2_tank.outlet_to_turbine.flow_mol"]) * 3600.0
+        bal = float(np.abs(holdup - prev - net_in).max())
+        pipe = float(np.mean(sol["h2_tank.outlet_to_pipeline.flow_mol"]))
+        grid = float(np.mean(sol["np_power_split.np_to_grid_elec"]))
+        print(f"[ne] LMP {lmp:g}: tank balance max error {bal:.3e} mol; pipeline flow "
+              f"{pipe:.3f} mol/s, grid {grid:.1f} kW of 500,000")
+        check(bal <= 1e-4, f"[ne] the tank holdup does not balance at LMP {lmp:g}: {bal:.3e}")
+        if lmp >= 100.0:
+            check(grid >= 0.999 * 500e3 and pipe <= 1e-3,
+                  f"[ne] dear power (LMP {lmp:g}) does not go to the grid")
+        else:
+            check(pipe > 1.0 and grid < 500e3, f"[ne] cheap power (LMP {lmp:g}) does not go "
+                  "to hydrogen")
+
+
+class _Recorder:
+    """Wraps the double loop's hooks for phase 7: every IPM solve's status
+    and iterations, the seconds of each market cycle's parts, the bid
+    curves, the RUC's host time and commitment, the dispatch LPs' params
+    (the DA LP and the first 4 SCED hours), and the simulator itself."""
+
+    def __init__(self, torch):
+        from dispatches_tpu_torch.grid import bidder, coordinator, market, tracker
+
+        self.torch = torch
+        self.solves = []          # (kind, status, iterations, seconds)
+        self.parts = {}           # part -> [seconds]
+        self.curves = []          # bid dicts
+        self.lps = []             # (kind, params, result, seconds, peak bytes)
+        self.ruc_s, self.u, self.sim = [], None, None
+        self._undo = []
+        rec = self
+
+        def wrap(obj, name, fn):
+            orig = getattr(obj, name)
+            self._undo.append((obj, name, orig))
+            setattr(obj, name, fn(orig))
+
+        def timed(part):
+            def deco(orig):
+                def run(*a, **k):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = orig(*a, **k)
+                    torch.cuda.synchronize()
+                    rec.parts.setdefault(part, []).append(time.perf_counter() - t0)
+                    if part in ("bid.rt", "bid.da"):
+                        rec.curves.append(out)
+                    return out
+                return run
+            return deco
+
+        def scen(orig):
+            def run(self_, blk, prices):
+                t0 = time.perf_counter()
+                powers, res = orig(self_, blk, prices)
+                rec.solves.append((f"bid[h={blk.horizon}]", int(res.status),
+                                   int(res.iterations), time.perf_counter() - t0))
+                return powers, res
+            return run
+
+        def track(orig):
+            def run(self_, *a, **k):
+                t0 = time.perf_counter()
+                out = orig(self_, *a, **k)
+                rec.solves.append((f"track[h={self_.tracking_horizon}]", int(self_.res.status),
+                                   int(self_.res.iterations), time.perf_counter() - t0))
+                return out
+            return run
+
+        def lp_solve(orig):
+            def run(self_, params):
+                kind = "da" if self_.H == rec.sim.ruc_horizon else "sced"
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = orig(self_, params)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                res = out[0]
+                rec.solves.append((kind, int(res.status), int(res.iterations), dt))
+                n_sced = sum(1 for lp in rec.lps if lp[0] == "sced")
+                if kind == "da" or n_sced < 4:
+                    rec.lps.append((kind, params, out, dt, torch.cuda.max_memory_allocated()))
+                return out
+            return run
+
+        def ruc(orig):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                u = orig(*a, **k)
+                rec.ruc_s.append(time.perf_counter() - t0)
+                rec.u = u
+                return u
+            return run
+
+        def sim_init(orig):
+            def run(self_, *a, **k):
+                orig(self_, *a, **k)
+                rec.sim = self_
+            return run
+
+        C = coordinator.DoubleLoopCoordinator
+        wrap(C, "request_rt_bids", timed("bid.rt"))
+        wrap(C, "request_da_bids", timed("bid.da"))
+        wrap(C, "push_rt_dispatch", timed("track.rt"))
+        wrap(C, "push_da_results", timed("projection"))
+        wrap(bidder._BidderBase, "_scenario_solve", scen)
+        wrap(tracker.Tracker, "track_market_dispatch", track)
+        wrap(market._DispatchLP, "solve", lp_solve)
+        wrap(market, "solve_unit_commitment", ruc)
+        wrap(market.MarketSimulator, "__init__", sim_init)
+
+    def restore(self):
+        for obj, name, orig in reversed(self._undo):
+            setattr(obj, name, orig)
+
+
+def _monotone(bids):
+    """Every curve of a bid dict non-decreasing: power and cost up, the
+    marginal price (cost slope) not falling."""
+    for t, gens in bids.items():
+        for g in gens.values():
+            if "p_cost" not in g:
+                continue
+            pw = np.array([p for p, _ in g["p_cost"]])
+            c = np.array([c for _, c in g["p_cost"]])
+            if np.any(np.diff(pw) <= 0) or np.any(np.diff(c) < -1e-9):
+                return False
+            marg = np.diff(c) / np.diff(pw)
+            if np.any(np.diff(marg) < -1e-6):
+                return False
+    return True
+
+
+def double_loop(torch, dev, work):
+    """[double-loop]: the port's ``run_double_loop`` on the synthetic
+    73-bus case, one day, ``DoubleLoopOptions``' defaults otherwise (the
+    device passed as ``--device``: cuda, its default, on the card)."""
+    import pandas as pd
+
+    from dispatches_tpu_torch.case_studies.renewables.run_double_loop import main as dl_main
+    from dispatches_tpu_torch.grid.market import load_rts_gmlc_case
+
+    t0 = time.perf_counter()
+    data = write_synthetic_rts(work / "rts73", DL_BUSES, DL_BRANCHES, DL_THERMAL, DL_RENEWABLE,
+                               seed=DL_SEED)
+    case = load_rts_gmlc_case(data)
+    print(f"[market] synthetic RTS-GMLC case (seed {DL_SEED}): {len(case.buses)} buses, "
+          f"{case.ptdf.shape[0]} branches, {len(case.thermals)} thermal, "
+          f"{len(case.renewables)} renewable units, {case.n_hours} hours; written and "
+          f"parsed in {time.perf_counter() - t0:.2f} s")
+    check((len(case.buses), case.ptdf.shape[0], len(case.thermals), len(case.renewables))
+          == (DL_BUSES, DL_BRANCHES, DL_THERMAL, DL_RENEWABLE),
+          "[market] load_rts_gmlc_case did not parse the synthetic case's counts")
+    out = work / "dl_out"
+    rec = _Recorder(torch)
+    try:
+        t0 = time.perf_counter()
+        res = dl_main(["--data_path", str(data), "--num_days", "1", "--output_dir", str(out),
+                       "--device", dev.type])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        rec.restore()
+    print(f"[double-loop] one market day in {wall:.1f} s; total cost {res['total_cost']:.2f}")
+    bad = [s for s in rec.solves if s[1] >= 2]
+    check(not bad, f"[double-loop] {len(bad)} solves did not converge: {bad[:5]}")
+    kinds = sorted({s[0] for s in rec.solves})
+    for k in kinds:
+        its = [s[2] for s in rec.solves if s[0] == k]
+        secs = [s[3] for s in rec.solves if s[0] == k]
+        print(f"[double-loop] {k}: {len(its)} solves, IPM iterations mean {np.mean(its):.1f} "
+              f"(min {min(its)}, max {max(its)}), seconds mean {np.mean(secs):.3f}, "
+              f"statuses {sorted(set(s[1] for s in rec.solves if s[0] == k))}")
+    for part, secs in rec.parts.items():
+        print(f"[double-loop] {part}: {len(secs)} calls, {np.mean(secs):.3f} s mean, "
+              f"{np.sum(secs):.1f} s total")
+    sced = [s for s in rec.solves if s[0] == "sced"]
+    hourly = sum(1 for s in rec.solves if s[0] in ("sced", "bid[h=4]", "track[h=4]"))
+    print(f"[double-loop] per market hour: RT bidding {np.mean(rec.parts['bid.rt']):.3f} s, "
+          f"SCED {np.mean([s[3] for s in sced]):.3f} s, tracking "
+          f"{np.mean(rec.parts['track.rt']):.3f} s; projection {np.sum(rec.parts['projection']):.3f} s "
+          f"per day; {hourly / 24:.2f} solves per hour (+ the DA bid, the DA LP and the "
+          "projection once a day)")
+    check(all(_monotone(b) for b in rec.curves) and rec.curves,
+          "[double-loop] a bid curve is not non-decreasing in price")
+    print(f"[double-loop] {len(rec.curves)} bid sets, every curve non-decreasing in price")
+    files = {p.name: len(pd.read_csv(p)) for p in sorted(out.glob("*.csv"))}
+    print(f"[double-loop] output files (rows): {files}")
+    nb, nth, nren = len(case.buses), len(case.thermals), len(case.renewables)
+    want = {"hourly_summary.csv": 1, "bus_detail.csv": nb, "thermal_detail.csv": nth + 1,
+            "renewables_detail.csv": nren - 1}
+    for name, per_hour in want.items():
+        df = pd.read_csv(out / name)
+        counts = df.groupby("Hour").size()
+        check(sorted(counts.index) == list(range(24)) and set(counts) == {per_hour},
+              f"[market] {name} does not hold {per_hour} rows in each of 24 hours")
+    check(files.get("tracker_detail.csv") == 24 * 4 and files.get("tracking_model_detail.csv") == 4
+          and files.get("bidder_detail.csv") == 48 + 24 * 4
+          and files.get("overall_simulation_output.csv") == 1,
+          f"[double-loop] the participant's output files are incomplete: {files}")
+    shed = float(pd.read_csv(out / "hourly_summary.csv")["Shortfall"].max())
+    check(shed == 0.0, f"[market] load was shed: {shed} MW")
+    return rec, case
+
+
+def market_checks(torch, dev, rec, case):
+    """[market]: the DA LP and 4 SCED hours of the [double-loop] run
+    against HiGHS on the same LPs."""
+    print(f"[market] RUC (host MILP): {rec.ruc_s[0]:.2f} s")
+    worst = 0.0
+    for kind, params, (res, sol, lmp), dt, peak in rec.lps:
+        nlp = (rec.sim._da_lp if kind == "da" else rec.sim._rt_lp).nlp
+        t0 = time.perf_counter()
+        obj, eqm, inm = highs_lp(torch, nlp, params, f"[market] {kind} LP", dev)
+        hs = time.perf_counter() - t0
+        rel = abs(float(res.obj) - obj) / max(1.0, abs(obj))
+        worst = max(worst, rel)
+        H = nlp.H
+        n_line = case.ptdf.shape[0]
+        a, b = nlp.ineq_slices["line_fwd"]
+        mf = inm[a:b].reshape(n_line, H).T
+        mb = inm[b:b + n_line * H].reshape(n_line, H).T
+        lmp_h = eqm[:H, None] + (mf - mb) @ case.ptdf
+        binding = int((np.abs(mf) + np.abs(mb) > 1e-6).sum())
+        print(f"[market] {kind} LP (H={H}, n={nlp.n}, m_eq={nlp.m_eq}, m_ineq={nlp.m_ineq}): "
+              f"{int(res.iterations)} IPM iterations, {dt:.3f} s, peak device memory "
+              f"{peak / 2**30:.2f} GiB; objective {float(res.obj):.6f} vs HiGHS {obj:.6f} "
+              f"(rel {rel:.3e}, HiGHS {hs:.1f} s); LMP range [{lmp.min():.4f}, {lmp.max():.4f}] "
+              f"$/MWh; max |LMP - HiGHS duals| {np.abs(lmp - lmp_h).max():.3e} (reported only); "
+              f"binding line-hours {binding}")
+        check(rel <= DL_OBJ_RTOL, f"[market] {kind} LP objective {rel:.3e} from HiGHS")
+    check(sum(1 for lp in rec.lps if lp[0] == "sced") == 4 and rec.lps[0][0] == "da",
+          "[market] the DA LP and 4 SCED hours were not captured")
+    print(f"[market] DA + 4 SCED objectives within {worst:.3e} of HiGHS")
+
+
+def bid_batch(torch, dev, case):
+    """[bid-batch]: ``compute_day_ahead_bids_batch`` over 7 days as one lane
+    axis against 7 calls of ``compute_day_ahead_bids`` on the same
+    capacity-factor windows, with a fixed (state-neutral) forecaster."""
+    from dispatches_tpu_torch.case_studies.renewables.wind_battery_double_loop import (
+        MultiPeriodWindBattery,
+    )
+    from dispatches_tpu_torch.grid import Bidder, ThermalGeneratorModelData
+
+    ren = {r.name: r for r in case.renewables}["4_WIND"]
+    cfs = np.asarray(ren.rt_cap) / max(ren.rt_cap.max(), 1e-9)
+    md = ThermalGeneratorModelData(gen_name="4_WIND", bus=ren.bus, p_min=0.0, p_max=120.0,
+                                   startup_capacity=0.0, shutdown_capacity=135.0)
+    mp = MultiPeriodWindBattery(model_data=md, wind_capacity_factors=cfs, wind_pmax_mw=120.0,
+                                battery_pmax_mw=15.0, battery_energy_capacity_mwh=60.0)
+    rng = np.random.default_rng(DL_SEED)
+    scen = 20.0 + 5.0 * rng.random((3, 48))
+
+    class Fixed:
+        def forecast_day_ahead_prices(self, date, hour, bus, horizon, n):
+            return scen[:n, :horizon]
+
+        forecast_real_time_prices = forecast_day_ahead_prices
+
+    bidder = Bidder(bidding_model_object=mp, day_ahead_horizon=48, real_time_horizon=4,
+                    n_scenario=3, forecaster=Fixed(), device=dev)
+    dates = [f"2020-07-{10 + i:02d}" for i in range(N_BID_DAYS)]
+    t0 = time.perf_counter()
+    batch = bidder.compute_day_ahead_bids_batch(dates)
+    torch.cuda.synchronize()
+    tb = time.perf_counter() - t0
+    blk, fs = bidder.day_ahead_model, bidder.day_ahead_model.m.fs
+    t0 = time.perf_counter()
+    seq = {}
+    for i, d in enumerate(dates):
+        fs.params["windpower.capacity_factor"] = mp._cf_window(blk._time_idx + 24 * i, 48)
+        seq[d] = bidder.compute_day_ahead_bids(date=d)
+    torch.cuda.synchronize()
+    ts = time.perf_counter() - t0
+    worst = 0.0
+    for d in dates:
+        for t in range(48):
+            a, b = batch[d][t]["4_WIND"]["p_cost"], seq[d][t]["4_WIND"]["p_cost"]
+            check(len(a) == len(b), f"[bid-batch] {d} hour {t}: curves differ in length")
+            for (pa, ca), (pb, cb) in zip(a, b):
+                worst = max(worst, abs(pa - pb) / max(1.0, abs(pb)),
+                            abs(ca - cb) / max(1.0, abs(cb)))
+    print(f"[bid-batch] {N_BID_DAYS} days: one lane-axis solve {tb:.2f} s, {N_BID_DAYS} "
+          f"sequential solves {ts:.2f} s; bids max rel diff {worst:.3e}")
+    check(worst <= BID_RTOL, f"[bid-batch] batched bids {worst:.3e} from the sequential ones")
+
+
+def dl_trace(torch, rec):
+    """[dl-trace]: one warmed market hour (RT bids, SCED, tracking and a
+    projection solve) under torch.profiler."""
+    sim = rec.sim
+    coord, case, lp = sim.coordinator, sim.case, sim._rt_lp
+    hr, Hs = 12, sim.sced_horizon
+    hours = np.clip(np.arange(hr, hr + Hs), 0, case.n_hours - 1)
+    u_h = rec.u[np.clip(np.arange(hr, hr + Hs), 0, rec.u.shape[0] - 1)]
+    date = "2020-07-10"
+    n0 = len(rec.solves)
+
+    def hour():
+        bidder = coord.bidder
+        prices = np.asarray(bidder.forecaster.forecast_real_time_prices(
+            date, hr, bidder.bidding_model_object.model_data.bus, bidder.real_time_horizon,
+            bidder.n_scenario))
+        powers, res_bid = bidder._scenario_solve(bidder.real_time_model, prices)
+        bids = bidder._curves(prices, powers, bidder.real_time_horizon)
+        res, sol, lmp = lp.solve(lp.params_for(hours, u_h, rt=True, participant_bids=bids))
+        pp = float(sum(np.asarray(sol[f"pp_{k}"]) for k in range(4))[0])
+        coord.tracker.track_market_dispatch(np.full(4, pp), date=date, hour=hr)
+        coord.projection_tracker.track_market_dispatch(np.full(4, pp), date=date, hour=hr)
+        return res_bid, res, coord.tracker.res, coord.projection_tracker.res
+
+    # the hour's four solvers are warm from the [double-loop] day
+    torch.cuda.synchronize()
+    out, prof, by_name, total, window = profile_run(torch, hour, "[dl-trace] market hour")
+    its = [int(r.iterations) for r in out]
+    print(f"[dl-trace] IPM iterations in the hour (RT bid, SCED, tracker, projection): {its}")
+    if by_name:
+        launches = sum(n for n, _ in by_name.values())
+        print(f"[dl-trace] {launches} device launches over {sum(its)} Newton iterations: "
+              f"{launches / max(sum(its), 1):.1f} per iteration")
+
+
+def phase_double_loop(torch, dev):
+    """Phase 7, with the sweep kernels' counts set to 0 before and read
+    after: the double loop and the nuclear case run on the float64 IPM
+    and launch neither sweep."""
+    import tempfile
+
+    from dispatches_tpu_torch.kernels import pdhg_sweep as ks
+
+    ks.avg_sweep.launches = 0
+    ks.halpern_sweep.launches = 0
+    t0 = time.perf_counter()
+    ne_price_taker(torch, dev)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="phase7-") as tmp:
+        rec, case = double_loop(torch, dev, Path(tmp))
+        market_checks(torch, dev, rec, case)
+        bid_batch(torch, dev, case)
+        dl_trace(torch, rec)
+    print(f"[phase7] {time.perf_counter() - t0:.1f} s; sweep kernel launches during it: "
+          f"halpern {ks.halpern_sweep.launches}, avg {ks.avg_sweep.launches}")
+    check(ks.halpern_sweep.launches == 0 and ks.avg_sweep.launches == 0,
+          "[phase7] the double loop launched a sweep kernel")
+
+
 def main():
     import torch
 
@@ -1472,6 +2106,12 @@ def main():
         fail("dispatches_tpu_torch/ is not beside chip_smoke.py")
     sys.path.insert(0, str(ROOT))
 
+    if sys.argv[1:] == ["--only-phase7"]:
+        # a development run of phase 7 alone: no kernel build, no result line
+        phase_device_info(torch)
+        phase_double_loop(torch, torch.device("cuda"))
+        print("[only-phase7] done (no result line: not the smoke test's full run)")
+        return
     card = phase_device(torch)
     # the main path runs first, so its launch counts start from zero
     # before any comparison launch
@@ -1484,6 +2124,7 @@ def main():
     entry_run = phase_ipm_path(torch, dev, main_run)
     phase_serve_path(torch, dev, main_run, entry_run)
     phase_hydrogen(torch, dev, pem)
+    phase_double_loop(torch, dev)
 
     replaces = {"halpern": "dispatches_tpu/solvers/pdlp_batch.py:196",
                 "avg": "dispatches_tpu/solvers/pdlp_batch.py:80"}

@@ -10,7 +10,9 @@ Device rule: the entry points (``make_lp_data``, the PDLP and IPM solver
 builders, ``detect_time_structure``, ``make_structured_kkt``,
 ``SolverFactory``, ``wind_battery_optimize``,
 ``wind_battery_pem_optimize``, ``wind_battery_pem_tank_turb_optimize``,
-``entry.entry``,
+``entry.entry``, ``ne_price_taker_optimize``, the grid layer's
+``Tracker``/``Bidder``/``SelfScheduler``/``MarketSimulator`` and
+``run_double_loop`` (``--device``),
 ``SolveService``, ``ExecutionPlan`` via ``PlanOptions.device``,
 ``learn.fit``) run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no ``device=`` they raise instead of carrying on quietly
@@ -28,7 +30,11 @@ ideal-gas and H2-combustion property packages, the PEM electrolyzer,
 simple and detailed hydrogen tanks, translator, mixer, hydrogen turbine
 and PV models, every ``create_model`` branch, the unit ``report()``
 tables, ``wind_battery_pem_optimize`` and
-``wind_battery_pem_tank_turb_optimize``).
+``wind_battery_pem_tank_turb_optimize``); the double loop (``core/
+config.py``, ``core/stacked.py``, ``grid/`` — model data, forecasters,
+tracker, bidders, coordinator, the RUC/SCED market and its readers —
+``MultiPeriodWindBattery`` and ``run_double_loop``) and the nuclear case
+study (``case_studies/nuclear``).
 """
 
 import torch

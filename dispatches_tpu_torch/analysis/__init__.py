@@ -3,6 +3,7 @@ counterpart; the lint passes are not ported yet)."""
 
 from dispatches_tpu_torch.analysis.flags import flag_enabled, flag_name
 from dispatches_tpu_torch.analysis.runtime import (
+    CountedProgram,
     LockOrderError,
     ProgramCounter,
     SanitizeWarning,
@@ -15,6 +16,7 @@ from dispatches_tpu_torch.analysis.runtime import (
 )
 
 __all__ = [
+    "CountedProgram",
     "LockOrderError",
     "ProgramCounter",
     "SanitizeWarning",

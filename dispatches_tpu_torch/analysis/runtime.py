@@ -14,6 +14,8 @@ Counterpart of ``dispatches_tpu/analysis/runtime.py``:
   dtypes) a program has run.  That is the quantity behind the serve
   layer's "compiled programs" and a bucket's compiles, so both packages
   report the same numbers.
+* :class:`CountedProgram` wraps a solver callable with such a counter,
+  where the JAX package wraps it in ``graft_jit``.
 * ``sanitized_lock``: a copy of the JAX package's (pure Python).
 """
 
@@ -30,6 +32,7 @@ import torch
 from dispatches_tpu_torch.analysis.flags import flag_enabled
 
 __all__ = [
+    "CountedProgram",
     "LockOrderError",
     "ProgramCounter",
     "SanitizeWarning",
@@ -130,6 +133,24 @@ class ProgramCounter:
         except Exception:
             pass
         return True
+
+
+class CountedProgram:
+    """A solver callable with the JAX package's ``graft_jit`` compile
+    count: ``_graft_counter`` (a :class:`ProgramCounter` labelled
+    ``label``) counts the distinct params signatures it has run."""
+
+    __slots__ = ("_fn", "_graft_counter")
+
+    def __init__(self, fn, label: str):
+        self._fn = fn
+        self._graft_counter = ProgramCounter(label)
+
+    def __call__(self, params, *args, **kwargs):
+        from dispatches_tpu_torch.plan.execution import _signature
+
+        self._graft_counter.observe(_signature((params,) + args))
+        return self._fn(params, *args, **kwargs)
 
 
 class LockOrderError(RuntimeError):

@@ -1,1 +1,2 @@
-"""Case studies of the port."""
+"""Case studies of the port: renewables (wind, battery, PEM, hydrogen;
+the price-takers and the double loop) and nuclear."""

@@ -1,9 +1,14 @@
 """Cost/price/size constants of the renewables case (counterpart of the
 constants in ``dispatches_tpu/case_studies/renewables/
-load_parameters.py``).  The market and resource file loaders are not
+load_parameters.py``) and ``data_dir()``, where the renewables case's
+data directory is found.  The market and resource file loaders are not
 ported yet."""
 
 from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Optional
 
 timestep_hrs = 1.0
 h2_mols_per_kg = 500.0
@@ -46,3 +51,17 @@ N_years = 30
 PA = ((1 + discount_rate) ** N_years - 1) / (
     discount_rate * (1 + discount_rate) ** N_years
 )
+
+
+# ---------------------------------------------------------------------------
+# data location
+# ---------------------------------------------------------------------------
+
+
+def data_dir() -> Optional[Path]:
+    """The renewables case's data directory: ``DISPATCHES_TPU_DATA`` when
+    it names an existing directory, else None (nothing mounted)."""
+    d = os.environ.get("DISPATCHES_TPU_DATA", "")
+    if d and Path(d).exists():
+        return Path(d)
+    return None

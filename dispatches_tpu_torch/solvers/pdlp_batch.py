@@ -45,6 +45,12 @@ from dispatches_tpu_torch.solvers.pdlp import (
 
 SWEEPS = ("auto", "cuda", "torch")
 
+#: observer of the main loop: when set, called as ``hook(it, state)`` after
+#: every check with the per-lane state dict (``k`` 0 where the lane just
+#: restarted, ``stall``, ``e_b``, ``e_r``, ``omega``, ``done``); tests use it
+#: to hold per-check decisions against the JAX package's
+_CHECK_HOOK = None
+
 
 @dataclass(frozen=True)
 class BatchPDLPOptions(PDLPOptions):
@@ -386,6 +392,8 @@ def make_pdlp_batch_solver(nlp, options: BatchPDLPOptions = BatchPDLPOptions(),
         while it < opt.max_iter and not bool(s["done"].all()):
             s = step(s, it, c, b)
             it += ce
+            if _CHECK_HOOK is not None:
+                _CHECK_HOOK(it, s)
 
         xb, zb = s["xb"], s["zb"]
         if plan.rounds:

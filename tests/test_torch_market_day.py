@@ -1,0 +1,90 @@
+"""The PyTorch port's market day and double loop held to the JAX package
+on the CPU, on the 5-bus synthetic RTS-GMLC-format case of
+tests/test_torch_market.py (``chip_smoke.py``'s writer; the card runs it at
+73 buses):
+
+- one simulated day without a participant: every CSV equal to JAX's to
+  its rounding;
+- ``run_double_loop`` for one day at narrow options (DA horizon 24,
+  ``n_scenario`` 2, ``slow``): the market's CSVs, the bids and the total
+  cost within 1e-6 of JAX's; the trackers' logs by schema (the tracking LP
+  is degenerate, see the test).
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pandas as pd
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from dispatches_tpu.case_studies.renewables import run_double_loop as j_rdl  # noqa: E402
+from dispatches_tpu.grid import market as jm  # noqa: E402
+
+from dispatches_tpu_torch.case_studies.renewables import run_double_loop as t_rdl  # noqa: E402
+from dispatches_tpu_torch.grid import market as tm  # noqa: E402
+
+from test_torch_market import CPU, data  # noqa: E402,F401
+from test_torch_stacked import one_torch_thread  # noqa: E402,F401
+
+
+def _csvs(d):
+    return {p.name: p.read_text() for p in sorted(Path(d).glob("*.csv"))}
+
+
+def test_one_day_without_participant_csvs_equal(data, tmp_path):
+    tc, jc = tm.load_rts_gmlc_case(data), jm.load_rts_gmlc_case(data)
+    # the shortest RUC window the market accepts (24 h; the card runs the
+    # default 48 at 73 buses): the JAX side's compile grows with it
+    t_out = tm.MarketSimulator(tc, tmp_path / "t", ruc_horizon=24,
+                               device=CPU).simulate("2020-07-10", 1)
+    j_out = jm.MarketSimulator(jc, tmp_path / "j", ruc_horizon=24).simulate("2020-07-10", 1)
+    got, want = _csvs(t_out["output_dir"]), _csvs(j_out["output_dir"])
+    assert sorted(got) == sorted(want) == sorted([
+        "bus_detail.csv", "hourly_summary.csv", "overall_simulation_output.csv",
+        "renewables_detail.csv", "thermal_detail.csv"])
+    for name in want:
+        assert got[name] == want[name], name
+    assert len(pd.read_csv(t_out["output_dir"] / "bus_detail.csv")) == 24 * 5
+    assert pd.read_csv(t_out["output_dir"] / "hourly_summary.csv")["Shortfall"].max() == 0.0
+
+
+@pytest.mark.slow
+def test_run_double_loop_matches_jax(data, tmp_path):
+    """``slow``: over two minutes on an idle CPU, most of it the JAX side's
+    compiles, and far more in the parallel tier-1 run (with it the whole
+    run outgrew its limit);
+    the port's ``run_double_loop`` runs on the card in ``chip_smoke.py``'s
+    ``[double-loop]``, and the market's CSVs against JAX's in
+    test_one_day_without_participant_csvs_equal."""
+    common = dict(data_path=str(data), num_days=1, day_ahead_horizon=24, n_scenario=2)
+    t_out = t_rdl.run_double_loop(t_rdl.DoubleLoopOptions(
+        **common, output_dir=str(tmp_path / "t"), device="cpu"))
+    j_out = j_rdl.run_double_loop(j_rdl.DoubleLoopOptions(
+        **common, output_dir=str(tmp_path / "j")))
+    assert abs(t_out["total_cost"] - j_out["total_cost"]) <= 1e-6 * abs(j_out["total_cost"])
+    names = sorted(p.name for p in Path(j_out["output_dir"]).glob("*.csv"))
+    assert sorted(p.name for p in Path(t_out["output_dir"]).glob("*.csv")) == names
+    assert {"bidder_detail.csv", "tracker_detail.csv", "tracking_model_detail.csv"} <= set(names)
+    for name in names:
+        got = pd.read_csv(Path(t_out["output_dir"]) / name)
+        want = pd.read_csv(Path(j_out["output_dir"]) / name)
+        assert list(got.columns) == list(want.columns) and got.shape == want.shape, name
+        if name in ("tracker_detail.csv", "tracking_model_detail.csv"):
+            # the tracking LP is degenerate (curtailing a MW and
+            # over-delivering it both cost 1000 $, battery use is nearly
+            # free): a signal that differs in its last bits moves the
+            # solution along the optimal face, so these logs are held to
+            # their schema and rows here and the Tracker itself to 1e-8 on
+            # one signal in tests/test_torch_grid.py
+            for col in ("Generator", "Date", "Hour", "Horizon [hr]"):
+                assert got[col].astype(str).tolist() == want[col].astype(str).tolist()
+            assert np.isfinite(got.select_dtypes("number").to_numpy()).all()
+            continue
+        for col in want.columns:
+            if pd.api.types.is_numeric_dtype(want[col]):
+                np.testing.assert_allclose(got[col].to_numpy(float), want[col].to_numpy(float),
+                                           rtol=0, atol=1e-6, err_msg=f"{name}:{col}")
+            else:
+                assert got[col].astype(str).tolist() == want[col].astype(str).tolist(), name

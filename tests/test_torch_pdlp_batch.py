@@ -422,3 +422,37 @@ def test_scalings_feed_the_same_matrix(models):
     A = np.vstack([data["K"], data["G"]])
     np.testing.assert_array_equal(t_scalings(A, PDLPOptions())[2],
                                   _scalings(A, JPDLPOptions())[2])
+
+
+# ---------------------------------------------------------------------
+# the second real operator: the PEM price-taker LP
+# ---------------------------------------------------------------------
+
+def test_batch_solver_matches_jax_f64_on_the_pem_operator():
+    """chip_smoke.py's PEM price-taker LP (bench.py's nlp_pem24h recipe:
+    wind 200 MW, battery and PEM 25 MW, sizes fixed) through both packages'
+    batch solvers in f64 at 16 LMP lanes (halpern, tol 1e-5): every lane's
+    iteration count equal, objectives within 1e-9 relative."""
+    from dispatches_tpu.case_studies.renewables import wind_battery_pem_optimize as j_pem
+    from dispatches_tpu_torch.case_studies.renewables import wind_battery_pem_optimize as t_pem
+
+    rng = np.random.default_rng(1)
+    base = 35.0 + 25.0 * np.sin(2 * np.pi * np.arange(T) / 24)
+    params = {"wind_mw": 200.0, "batt_mw": 25.0, "pem_mw": 25.0, "design_opt": False,
+              "extant_wind": True, "capacity_factors": 0.35 + 0.3 * rng.random(T),
+              "DA_LMPs": base}
+    jn = j_pem(T, params).nlp
+    tn = t_pem(T, params, device="cpu").nlp
+    data = j_make_lp_data(jn)
+    lmp = 1e-3 * (base[None, :] + 10.0 * rng.standard_normal((16, T)))
+    d = jn.default_params()
+    opts = dict(tol=1e-5, dtype="float64")
+    jres = jax.jit(j_make_solver(jn, JBatchOptions(sweep="xla", **opts), lp_data=data))(
+        {"p": {**d["p"], "lmp": jnp.asarray(lmp)}, "fixed": d["fixed"]})
+    tres = make_pdlp_batch_solver(tn, BatchPDLPOptions(**opts), lp_data=lp_data_from_numpy(data),
+                                  device="cpu")({"p": {**d["p"], "lmp": lmp}, "fixed": d["fixed"]})
+    np.testing.assert_array_equal(tres.iters.numpy(), np.asarray(jres.iters))
+    np.testing.assert_array_equal(tres.converged.numpy(), np.asarray(jres.converged))
+    j_obj = np.asarray(jres.obj)
+    assert np.abs(tres.obj.numpy() - j_obj).max() <= 1e-9 * np.abs(j_obj).max()
+

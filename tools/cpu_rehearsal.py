@@ -4,6 +4,8 @@ the work one interior-point Newton iteration dispatches.
 
     python3 tools/cpu_rehearsal.py ops [--horizon 24]
     python3 tools/cpu_rehearsal.py phase6 [units] [pem] [batch] [hybrid]
+    python3 tools/cpu_rehearsal.py ops7 [--buses 73]
+    python3 tools/cpu_rehearsal.py phase7 [--buses 5]
 
 ``ops`` counts the aten operations that one Newton iteration of the IPM
 dispatches (the difference between ``max_iter=3`` and ``max_iter=1``,
@@ -15,6 +17,13 @@ the CUDA synchronisation calls stubbed: control flow, iteration counts
 and accuracy, never a device time.  The sweep kernels take their plain
 versions on the CPU and count no launch, so ``[pem-pdlp]``'s launch check
 fails here by design; failed checks are printed, not fatal.
+
+``ops7`` counts the same for the double loop's hourly solves on the
+synthetic case of ``--buses`` buses (73: phase 7's size): the SCED LP
+(H = 4), the Bidder's real-time stacked program (H = 4, 3 scenarios) and
+the Tracker (H = 4).  ``phase7`` runs phase 7 on the CPU on the synthetic
+case of ``--buses`` buses (5: the tier-1 tests' size; the card runs 73),
+the trace replaced by a plain call.
 """
 
 from __future__ import annotations
@@ -105,6 +114,82 @@ def phase6(parts):
     print(f"{len(failed)} check(s) failed")
 
 
+def _synthetic(buses, work):
+    sizes = {5: (5, 7, 5, 2), 73: (73, 120, 73, 81)}[buses]
+    return cs.write_synthetic_rts(Path(work) / f"rts{buses}", *sizes, seed=cs.DL_SEED)
+
+
+def count_ops7(buses):
+    import tempfile
+
+    from dispatches_tpu_torch.case_studies.renewables.wind_battery_double_loop import (
+        MultiPeriodWindBattery,
+    )
+    from dispatches_tpu_torch.grid import Bidder, ThermalGeneratorModelData, Tracker
+    from dispatches_tpu_torch.grid.market import _DispatchLP, load_rts_gmlc_case
+
+    with tempfile.TemporaryDirectory() as work:
+        case = load_rts_gmlc_case(_synthetic(buses, work))
+    lp = _DispatchLP(case, 4, "4_WIND", "4", device=CPU)
+    u = np.ones((4, len(lp.th)))
+    bids = {t: {"4_WIND": {"p_cost": [(0.0, 0.0), (60.0, 600.0), (120.0, 2400.0)]}}
+            for t in range(4)}
+    p = lp.params_for(np.arange(12, 16), u, rt=True, participant_bids=bids)
+    print(f"SCED LP ({buses} buses, H=4, n={lp.nlp.n}, m_ineq={lp.nlp.m_ineq}): "
+          f"{ops_per_iteration(lp.nlp, p, 'dense'):.1f} operations per Newton iteration")
+    md = ThermalGeneratorModelData(gen_name="4_WIND", bus="4", p_min=0.0, p_max=120.0)
+
+    def mp():
+        return MultiPeriodWindBattery(model_data=md, wind_capacity_factors=np.full(96, 0.5),
+                                      wind_pmax_mw=120.0, battery_pmax_mw=15.0,
+                                      battery_energy_capacity_mwh=60.0)
+
+    class Fixed:
+        def forecast_day_ahead_prices(self, date, hour, bus, horizon, n):
+            return 20.0 + 5.0 * np.random.default_rng(0).random((n, horizon))
+
+        forecast_real_time_prices = forecast_day_ahead_prices
+
+    bidder = Bidder(bidding_model_object=mp(), day_ahead_horizon=48, real_time_horizon=4,
+                    n_scenario=3, forecaster=Fixed(), device=CPU)
+    blk = bidder.real_time_model
+    sp = blk.stacked.default_params()
+    sp["p"]["energy_price"] = Fixed().forecast_day_ahead_prices(None, 0, None, 4, 3)
+    print(f"RT bid stacked program (H=4, S=3, n={blk.stacked.n}): "
+          f"{ops_per_iteration(blk.stacked, sp, 'auto'):.1f} operations per Newton iteration")
+    tr = Tracker(tracking_model_object=mp(), tracking_horizon=4, device=CPU)
+    tr.model.m.fs.params["market_dispatch"] = np.full(4, 60.0)
+    print(f"Tracker (H=4, n={tr.nlp.n}): "
+          f"{ops_per_iteration(tr.nlp, tr.nlp.default_params(), 'auto'):.1f} "
+          "operations per Newton iteration")
+
+
+def phase7(buses):
+    import tempfile
+
+    torch.cuda.synchronize = lambda *a, **k: None
+    torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    failed = []
+
+    def check(cond, msg):
+        if not cond:
+            print(f"check failed: {msg}")
+            failed.append(msg)
+
+    cs.check = check
+    cs.profile_run = lambda torch_, run, tag: (run(), None, {}, 0.0, 0.0)
+    sizes = {5: (5, 7, 5, 2), 73: (73, 120, 73, 81)}[buses]
+    cs.DL_BUSES, cs.DL_BRANCHES, cs.DL_THERMAL, cs.DL_RENEWABLE = sizes
+    cs.ne_price_taker(torch, CPU)
+    with tempfile.TemporaryDirectory() as work:
+        rec, case = cs.double_loop(torch, CPU, Path(work))
+        cs.market_checks(torch, CPU, rec, case)
+        cs.bid_batch(torch, CPU, case)
+        cs.dl_trace(torch, rec)
+    print(f"{len(failed)} check(s) failed")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -113,9 +198,17 @@ def main(argv=None):
     ph = sub.add_parser("phase6", help="chip_smoke.py phase 6 on the CPU")
     ph.add_argument("parts", nargs="*", default=["units", "pem", "batch", "hybrid"],
                     choices=["units", "pem", "batch", "hybrid"])
+    o7 = sub.add_parser("ops7", help="operations per Newton iteration of the hourly solves")
+    o7.add_argument("--buses", type=int, default=73, choices=[5, 73])
+    p7 = sub.add_parser("phase7", help="chip_smoke.py phase 7 on the CPU")
+    p7.add_argument("--buses", type=int, default=5, choices=[5, 73])
     args = ap.parse_args(argv)
     if args.cmd == "ops":
         count_ops(args.horizon)
+    elif args.cmd == "ops7":
+        count_ops7(args.buses)
+    elif args.cmd == "phase7":
+        phase7(args.buses)
     else:
         phase6(args.parts)
 
