@@ -74,8 +74,28 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    ``[bid-batch]`` 7 bid days as one lane axis equal to 7 sequential
    solves within 1e-6; ``[dl-trace]`` one warmed market hour under
    torch.profiler.
+8. the design-space sweep and the sweep->surrogate workflow (float64
+   per-scenario PDLP and plain torch; the sweep kernels' counts are read
+   around it): ``[sweep]`` ``run_sweep`` over 366 price profiles x 2 LHS
+   battery sizes (732 points) on phase 2's model, direct backend, chunks
+   of 128, tol 1e-8: the store complete, every point OK or retried, 16
+   points within 1e-6 of HiGHS; ``[sweep-resume]`` the same spec cut
+   after 3 chunks and resumed, every store file but progress.json
+   byte-equal to ``[sweep]``'s; ``[sweep-serve]`` the first 64 points
+   through the serve backend, within 1e-8 of ``[sweep]``;
+   ``[sweep-report]`` ``python -m dispatches_tpu_torch.sweep --report``
+   (and ``--json``) in a subprocess; ``[surrogate]`` a revenue MLP trained
+   on the store on the card, held within 1e-9 relative of the same recipe
+   trained on the CPU, and the five predictable shipped surrogates
+   against tests/data/surrogate_goldens; ``[cluster]`` k-means of the 366
+   LMP days (k 20) against a numpy Lloyd from the same seeding, and the
+   soft-DTW k-means recipe; ``[cashflow]`` NPV, IRR and PI at
+   tests/test_utils.py's anchors; ``[sweep-trace]`` one warmed 128-point
+   chunk under torch.profiler.
 
-Phase 3 times every kernel tier at B = 366, 1024 and 4096.  The line
+Phase 3 times every kernel tier at B = 366, 1024 and 4096.
+``--only-phase 7`` and ``--only-phase 8`` run one of those phases alone,
+for development (no kernel build, no result line).  The line
 before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -487,26 +507,35 @@ def highs_objectives(torch, nlp, lp, lmps, cfs):
         for s in range(len(lmps))])
 
 
-def phase_main_path(torch, dev):
+def flagship(torch, dev):
+    """Phase 2's model and scenarios without its solves: the 24-h
+    price-taker LP (capacity factors of scenario 0), its LP data and the
+    366 LMP and capacity-factor rows."""
     from dispatches_tpu_torch.case_studies.renewables.wind_battery_lmp import (
         wind_battery_pricetaker_nlp,
     )
-    from dispatches_tpu_torch.kernels import pdhg_sweep as ks
-    from dispatches_tpu_torch.solvers import BatchPDLPOptions, make_lp_data, make_pdlp_batch_solver
+    from dispatches_tpu_torch.solvers import make_lp_data
 
-    rng = np.random.default_rng(0)
-    lmps, cfs = scenarios(N_SCENARIOS, rng)
+    lmps, cfs = scenarios(N_SCENARIOS, np.random.default_rng(0))
     _, nlp = wind_battery_pricetaker_nlp(T, {
         "wind_mw": WIND_MW, "batt_mw": BATT_MW, "design_opt": False,
         "extant_wind": True, "capacity_factors": cfs[0], "DA_LMPs": lmps[0]})
-    lp = make_lp_data(nlp, device=dev)
+    return {"nlp": nlp, "lp": make_lp_data(nlp, device=dev), "lmps": lmps, "cfs": cfs}
+
+
+def phase_main_path(torch, dev):
+    from dispatches_tpu_torch.kernels import pdhg_sweep as ks
+    from dispatches_tpu_torch.solvers import BatchPDLPOptions, make_pdlp_batch_solver
+
+    main = flagship(torch, dev)
+    nlp, lp, lmps, cfs = main["nlp"], main["lp"], main["lmps"], main["cfs"]
     nnz = int(np.count_nonzero(np.vstack([lp["K"], lp["G"]])))
     print(f"[lp] n={nlp.n} m_eq={nlp.m_eq} m_ineq={nlp.m_ineq} nnz={nnz}")
     check((nlp.n, nlp.m_eq, nlp.m_ineq) == (193, 122, 96), "unexpected LP shape")
 
-    ref = highs_objectives(torch, nlp, lp, lmps[:N_HIGHS], cfs[:N_HIGHS])
+    main["ref"] = highs_objectives(torch, nlp, lp, lmps[:N_HIGHS], cfs[:N_HIGHS])
+    ref = main["ref"]
     defaults = nlp.default_params()
-    main = {"nlp": nlp, "lp": lp, "ref": ref, "lmps": lmps, "cfs": cfs}
 
     def batch(lmp_b, cf_b):
         return {"p": {**defaults["p"],
@@ -2097,6 +2126,342 @@ def phase_double_loop(torch, dev):
           "[phase7] the double loop launched a sweep kernel")
 
 
+# ---------------------------------------------------------------------
+# phase 8: the design-space sweep, its store and the sweep->surrogate workflow
+# ---------------------------------------------------------------------
+
+SWEEP_CHUNK = 128        # [sweep]: 366 x 2 = 732 points in 6 chunks (the last 92 live)
+SWEEP_LHS_N = 2          # battery sizes per price profile (cut to 1 first if over time)
+SWEEP_PDLP = {"tol": 1e-8, "dtype": "float64"}
+SWEEP_HIGHS_PER_SIZE = 8  # [sweep]: HiGHS-checked points per battery size
+SWEEP_RESUME_CHUNKS = 3  # [sweep-resume]: chunks in the first, cut-short run
+SWEEP_SERVE_N = 64       # [sweep-serve]: points through the serve backend
+SWEEP_SERVE_RTOL = 1e-8  # [sweep-serve] objectives vs [sweep]'s
+N_CLUSTERS = 20          # [cluster]: the shipped RE surrogate's cluster count
+CLUSTER_RTOL = 1e-9      # [cluster] inertia vs the plain numpy Lloyd
+GOLD_RTOL, GOLD_ATOL = 2e-4, 1e-3   # [surrogate] vs tests/data/surrogate_goldens
+MLP_CPU_RTOL = 1e-9                 # [surrogate] card-trained MLP vs the same recipe on the CPU
+
+
+def _sweep_spec(lmps, n_lhs=SWEEP_LHS_N):
+    """366 price profiles ($/kWh) x ``n_lhs`` battery sizes (kW, LHS)."""
+    from dispatches_tpu_torch.sweep import SweepSpec, grid, lhs
+
+    return SweepSpec((grid("lmp", lmps * 1e-3),
+                      lhs({"battery.nameplate_power": (5e3, 50e3)}, n_lhs, seed=1)))
+
+
+def _sweep_options(**kw):
+    from dispatches_tpu_torch.sweep import SweepOptions
+
+    kw.setdefault("chunk_size", SWEEP_CHUNK)
+    return SweepOptions(solver="pdlp", solver_options=SWEEP_PDLP, **kw)
+
+
+def _store_files(path):
+    """{relative path: bytes} of a store's identity files (all but the
+    run telemetry in progress.json)."""
+    return {str(f.relative_to(path)): f.read_bytes() for f in sorted(Path(path).rglob("*"))
+            if f.is_file() and f.name != "progress.json"}
+
+
+def sweep_direct(torch, dev, main_run, work):
+    """[sweep]: the 732-point spec through ``run_sweep``'s direct backend,
+    float64 PDLP at tol 1e-8; 16 points against HiGHS."""
+    from dispatches_tpu_torch.obs import registry
+    from dispatches_tpu_torch.sweep import STATUS_OK, STATUS_RETRIED, run_sweep
+
+    nlp, lp, lmps = main_run["nlp"], main_run["lp"], main_run["lmps"]
+    spec = _sweep_spec(lmps)
+    builds = registry.counter("program.builds")
+    b0 = builds.value(label="sweep.direct")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    store = run_sweep(nlp, spec, store_dir=work / "sweep", options=_sweep_options(), device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    a = store.arrays()
+    n = spec.n_points
+    check(store.is_complete and n == len(lmps) * SWEEP_LHS_N, "[sweep] store not complete")
+    check(a["obj"].shape == (n,) and np.all(np.isfinite(a["obj"])),
+          f"[sweep] objectives not finite of shape ({n},)")
+    st = a["status"]
+    check(np.all((st == STATUS_OK) | (st == STATUS_RETRIED)),
+          f"[sweep] statuses {np.bincount(st, minlength=4).tolist()}: a point quarantined "
+          "or refine-failed")
+    # point i is (profile i // n_lhs, battery size i % n_lhs): the first
+    # SWEEP_HIGHS_PER_SIZE profiles at every size
+    idx = np.array([r * SWEEP_LHS_N + s for s in range(SWEEP_LHS_N)
+                    for r in range(SWEEP_HIGHS_PER_SIZE)])
+    vals = spec.values_for(idx)
+    d = nlp.default_params()
+    ref = np.array([highs_objective(
+        torch, nlp, lp, {"p": {**d["p"], "lmp": vals["lmp"][k]},
+                         "fixed": {**d["fixed"], "battery.nameplate_power":
+                                   vals["battery.nameplate_power"][k]}}, f"sweep point {i}")
+        for k, i in enumerate(idx)])
+    err = np.abs(a["obj"][idx] - ref) / np.maximum(np.abs(ref), 1.0)
+    walls = [c["wall_s"] for _, c in sorted(store.progress()["chunks"].items(),
+                                           key=lambda kv: int(kv[0]))]
+    sizes = np.unique(a["inputs"][:, 1])
+    print(f"[sweep] {n} points ({len(lmps)} price profiles x {SWEEP_LHS_N} battery sizes "
+          f"{np.round(sizes).tolist()} kW), {len(walls)} chunks of {SWEEP_CHUNK} "
+          f"(last {n - SWEEP_CHUNK * (len(walls) - 1)} live): {dt:.2f} s = {n / dt:.1f} points/s; "
+          f"seconds per chunk {[round(w, 3) for w in walls]}, {dt - sum(walls):.3f} s outside "
+          f"the chunk timers (solver build, store writes); converged share "
+          f"{a['converged'].mean():.4f}; PDHG iterations mean {a['iterations'].mean():.1f} "
+          f"max {a['iterations'].max()}; statuses ok/retried {int(np.sum(st == STATUS_OK))}/"
+          f"{int(np.sum(st == STATUS_RETRIED))}; program signatures "
+          f"{builds.value(label='sweep.direct') - b0:.0f}; peak_mem "
+          f"{(torch.cuda.max_memory_allocated() - mem0) / 2**20:.1f} MiB above the sweep's start; "
+          f"obj_rel_err_vs_highs({len(idx)}) max {err.max():.3e}")
+    check(err.max() <= IPM_RTOL, f"[sweep] objective error {err.max():.3e} > {IPM_RTOL}")
+    return store
+
+
+def sweep_resume(torch, dev, main_run, work, ref_store):
+    """[sweep-resume]: the same spec cut after SWEEP_RESUME_CHUNKS chunks,
+    then resumed; every identity file byte-equal to [sweep]'s store."""
+    from dispatches_tpu_torch.sweep import run_sweep
+
+    nlp, spec = main_run["nlp"], _sweep_spec(main_run["lmps"])
+    t0 = time.perf_counter()
+    cut = run_sweep(nlp, spec, store_dir=work / "resume", device=dev,
+                    options=_sweep_options(max_chunks=SWEEP_RESUME_CHUNKS))
+    done_first = sorted(cut.completed)
+    ran = []
+    st = run_sweep(nlp, spec, store_dir=work / "resume", options=_sweep_options(), device=dev,
+                   resume=True, on_chunk=lambda cid, n: ran.append(cid))
+    torch.cuda.synchronize()
+    a, b = _store_files(ref_store.path), _store_files(st.path)
+    same = a.keys() == b.keys() and all(a[k] == b[k] for k in a)
+    print(f"[sweep-resume] cut after chunks {done_first}, resumed chunks {ran}, "
+          f"{time.perf_counter() - t0:.2f} s; {len(a)} identity files byte-equal to "
+          f"[sweep]'s store: {same}")
+    check(done_first == list(range(SWEEP_RESUME_CHUNKS)) and st.is_complete,
+          "[sweep-resume] the cut or the resume did not run as planned")
+    check(same, "[sweep-resume] the resumed store differs from [sweep]'s")
+
+
+def sweep_serve(torch, dev, main_run, work, ref_store):
+    """[sweep-serve]: the first SWEEP_SERVE_N points through the serve
+    backend (a private SolveService, max_batch 64, warm starts off)."""
+    from dispatches_tpu_torch.sweep import run_sweep
+
+    n_prof = SWEEP_SERVE_N // SWEEP_LHS_N
+    spec = _sweep_spec(main_run["lmps"][:n_prof])
+    t0 = time.perf_counter()
+    st = run_sweep(main_run["nlp"], spec, store_dir=work / "serve", device=dev,
+                   options=_sweep_options(backend="serve", chunk_size=SWEEP_SERVE_N))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got, want = st.objectives(), ref_store.objectives()[:SWEEP_SERVE_N]
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
+    it_s, it_d = st.arrays()["iterations"], ref_store.arrays()["iterations"][:SWEEP_SERVE_N]
+    print(f"[sweep-serve] {SWEEP_SERVE_N} points through SolveService (max_batch "
+          f"{SWEEP_SERVE_N}, warm starts off): {dt:.2f} s = {SWEEP_SERVE_N / dt:.1f} points/s; "
+          f"objectives vs [sweep] max rel {rel.max():.3e}; iterations equal on "
+          f"{int(np.sum(it_s == it_d))}/{SWEEP_SERVE_N} points")
+    check(st.is_complete, "[sweep-serve] store not complete")
+    check(rel.max() <= SWEEP_SERVE_RTOL,
+          f"[sweep-serve] objectives differ from [sweep]'s by {rel.max():.3e} > {SWEEP_SERVE_RTOL}")
+
+
+def sweep_report(torch, store):
+    """[sweep-report]: ``python -m dispatches_tpu_torch.sweep --report`` and
+    ``--json`` on [sweep]'s store, in a subprocess."""
+    outs = []
+    for extra in ([], ["--json"]):
+        r = subprocess.run([sys.executable, "-m", "dispatches_tpu_torch.sweep", "--report",
+                            *extra, str(store.path)], capture_output=True, text=True,
+                           cwd=ROOT, timeout=300)
+        check(r.returncode == 0, f"[sweep-report] rc {r.returncode}: {r.stderr.strip()[-500:]}")
+        outs.append(r.stdout)
+    payload = json.loads(outs[1])
+    n_chunks = len(store.chunk_plan())
+    for line in outs[0].splitlines():
+        print(f"[sweep-report] {line}")
+    check(f"chunks {n_chunks}/{n_chunks} done" in outs[0], "[sweep-report] chunks not all done")
+    check(payload["points_done"] == store.n_points,
+          f"[sweep-report] points_done {payload['points_done']} != {store.n_points}")
+
+
+def surrogates(torch, dev, store):
+    """[surrogate]: a revenue MLP trained on [sweep]'s store on the card,
+    then the five predictable shipped surrogates against their goldens."""
+    from dispatches_tpu_torch.sweep import train_revenue_surrogate
+    from dispatches_tpu_torch.workflow import TrainNNSurrogates, load_pretrained_surrogate
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer, params = train_revenue_surrogate(store, NN_size=[2, 16, 16, 1], epochs=400,
+                                              device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    scaling = trainer._model_params
+    pred = trainer.predict(params, scaling, store.arrays()["inputs"][:3], device=dev)
+    r2 = np.asarray(scaling["R2"], dtype=float)
+    print(f"[surrogate] revenue MLP [2, 16, 16, 1], 400 full-batch epochs on "
+          f"{len(store.training_data()[1])} points: {dt:.2f} s; train loss "
+          f"{scaling['train_loss']:.4e}, held-out R2 {r2.tolist()}")
+    check(np.all(np.isfinite(r2)), "[surrogate] R2 not finite")
+    check(pred.shape == (3, 1) and np.all(np.isfinite(pred)), "[surrogate] predictions")
+    # the same recipe (seed, split, 400 full-batch Adam epochs) on the CPU
+    host, host_params = train_revenue_surrogate(store, NN_size=[2, 16, 16, 1], epochs=400,
+                                                device="cpu")
+    host_pred = host.predict(host_params, host._model_params, store.arrays()["inputs"][:3],
+                             device="cpu")
+    flat = [np.concatenate([np.ravel(layer[k]) for layer in ps for k in ("W", "b")])
+            for ps in (params, host_params)]
+    w_rel = np.abs(flat[0] - flat[1]).max() / np.abs(flat[1]).max()
+    p_rel = np.abs(pred - host_pred).max() / np.abs(host_pred).max()
+    print(f"[surrogate] card vs CPU training, same recipe: weights max rel diff {w_rel:.3e}, "
+          f"predictions {p_rel:.3e} (tolerance {MLP_CPU_RTOL:g})")
+    check(w_rel <= MLP_CPU_RTOL and p_rel <= MLP_CPU_RTOL,
+          f"[surrogate] the card's training departs from the CPU's beyond {MLP_CPU_RTOL:g}")
+    worst = []
+    for name in ("RE_revenue", "RE_20clusters_dispatch_frequency", "NE_revenue",
+                 "NE_30clusters_dispatch_frequency", "FE_20clusters_dispatch_frequency"):
+        p, sc = load_pretrained_surrogate(name)
+        gold = np.load(ROOT / "tests" / "data" / "surrogate_goldens" / f"{name}_golden.npz")
+        got = TrainNNSurrogates.predict(p, sc, gold["x"], device=dev)
+        err = np.abs(got - gold["y"]) - GOLD_ATOL - GOLD_RTOL * np.abs(gold["y"])
+        worst.append(f"{name} {np.abs(got - gold['y']).max():.3e}")
+        check(got.shape == gold["y"].shape and np.all(err <= 0),
+              f"[surrogate] {name} misses its golden beyond rtol {GOLD_RTOL}/atol {GOLD_ATOL}")
+    print(f"[surrogate] shipped surrogates vs goldens on {dev.type} (max abs diff): "
+          + ", ".join(worst))
+
+
+def _lloyd_numpy(X, centers, n_iter=300, tol=1e-6):
+    """The plain Lloyd loop in numpy, the port's arithmetic (expanded
+    distances, empty clusters keep their centre); returns the inertia."""
+    k = len(centers)
+    for _ in range(n_iter):
+        d2 = (X * X).sum(1)[:, None] - 2.0 * X @ centers.T + (centers * centers).sum(1)[None]
+        lab = d2.argmin(1)
+        onehot = np.eye(k)[lab]
+        counts = onehot.sum(0)
+        new = np.where(counts[:, None] > 0, onehot.T @ X / np.maximum(counts, 1.0)[:, None],
+                       centers)
+        shift = np.abs(new - centers).max()
+        centers = new
+        if not shift > tol:
+            break
+    d2 = (X * X).sum(1)[:, None] - 2.0 * X @ centers.T + (centers * centers).sum(1)[None]
+    return float(d2.min(1).sum())
+
+
+def clustering(torch, dev, main_run):
+    """[cluster]: k-means of the 366 LMP days on the card against the plain
+    numpy Lloyd from the same seeding; the soft-DTW recipe of
+    tests/test_workflow_surrogates.py::test_soft_dtw_metric."""
+    from dispatches_tpu_torch.workflow import clustering as cl
+
+    X = np.asarray(main_run["lmps"], dtype=np.float64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    centers, labels, inertia = cl.kmeans_fit(X, N_CLUSTERS, seed=42, device=dev)
+    dt = time.perf_counter() - t0
+    c0 = cl._kmeanspp_init(torch.as_tensor(X), N_CLUSTERS,
+                           torch.Generator(device="cpu").manual_seed(42)).numpy()
+    want = _lloyd_numpy(X, c0)
+    rel = abs(inertia - want) / abs(want)
+    print(f"[cluster] kmeans_fit {X.shape[0]} x {X.shape[1]} LMP days, k {N_CLUSTERS}: "
+          f"{dt:.2f} s, inertia {inertia:.6f} vs numpy Lloyd from the same seeding "
+          f"{want:.6f} (rel {rel:.3e}); cluster sizes {np.bincount(labels, minlength=N_CLUSTERS).tolist()}")
+    check(rel <= CLUSTER_RTOL, f"[cluster] inertia off the numpy Lloyd by {rel:.3e}")
+    x = np.sin(np.linspace(0, 2 * np.pi, 24))
+    z = np.full(24, 0.2)
+    rng = np.random.default_rng(0)
+    Xs = np.vstack([x[None, :] + 0.05 * rng.standard_normal((8, 24)),
+                    z[None, :] + 0.05 * rng.standard_normal((8, 24))])
+    t0 = time.perf_counter()
+    _, lab, sd_inertia = cl.kmeans_fit_softdtw(Xs, 2, n_iter=4, barycenter_steps=8, device=dev)
+    d = [float(cl.soft_dtw(torch.as_tensor(x, device=dev), torch.as_tensor(s, device=dev)))
+         for s in (x, np.roll(x, 3), z)]
+    print(f"[cluster] soft-DTW k-means (16 series, k 2, 4 iterations x 8 barycentre steps): "
+          f"{time.perf_counter() - t0:.2f} s, labels {lab.tolist()}, inertia {sd_inertia:.6f}; "
+          f"soft-DTW self/shifted/flat {d[0]:.4f} < {d[1]:.4f} < {d[2]:.4f}")
+    check(len(set(lab[:8])) == 1 and len(set(lab[8:])) == 1 and lab[0] != lab[8],
+          "[cluster] soft-DTW k-means did not separate the two groups")
+    check(d[0] < d[1] < d[2], "[cluster] soft-DTW distances out of order")
+
+
+def cashflows(torch, dev):
+    """[cashflow]: NPV, IRR and PI at tests/test_utils.py's anchors."""
+    from dispatches_tpu_torch.utils import irr, npv, profitability_index
+
+    rate = 0.08
+    annuity = np.array([0.0, 100.0, 100.0, 100.0])
+    loan = np.array([-1000.0] + [1000 * rate / (1 - (1 + rate) ** -10)] * 10)
+    pi_cash = np.array([-1000.0, 600.0, 600.0])
+    t0 = time.perf_counter()
+    got = {"npv": npv(annuity, 0.1, device=dev), "irr": irr(loan, device=dev),
+           "pi": profitability_index(pi_cash, 0.1, device=dev)}
+    check(all(v.device.type == dev.type for v in got.values()), "[cashflow] not on the device")
+    got = {k: float(v) for k, v in got.items()}
+    want = {"npv": 100 * (1 - 1.1**-3) / 0.1, "irr": rate,
+            "pi": (600 / 1.1 + 600 / 1.21) / 1000}
+    print(f"[cashflow] {time.perf_counter() - t0:.3f} s on {dev.type}: "
+          + ", ".join(f"{k} {got[k]:.12g} (anchor {want[k]:.12g})" for k in got))
+    check(abs(got["npv"] - want["npv"]) <= 1e-12 * want["npv"], "[cashflow] npv")
+    check(abs(got["irr"] - rate) <= 1e-8, "[cashflow] irr")
+    check(abs(got["pi"] - want["pi"]) <= 1e-12 * want["pi"], "[cashflow] pi")
+
+
+def sweep_trace(torch, dev, main_run, work):
+    """[sweep-trace]: one warmed 128-point chunk under torch.profiler."""
+    from dispatches_tpu_torch.sweep import run_sweep
+
+    n_prof = SWEEP_CHUNK // SWEEP_LHS_N
+    spec = _sweep_spec(main_run["lmps"][:n_prof])
+
+    def run():
+        return run_sweep(main_run["nlp"], spec, store_dir=work / "trace", device=dev,
+                         options=_sweep_options(), overwrite=True)
+
+    run()
+    store, _, by_name, total, window = profile_run(torch, run, "[sweep-trace] 128-point chunk")
+    iters = int(store.arrays()["iterations"].max())
+    if by_name:
+        launches = sum(n for n, _ in by_name.values())
+        checks = math.ceil(iters / K_STEPS)
+        print(f"[sweep-trace] {launches} device launches over {checks} PDHG check intervals "
+              f"(slowest point {iters} iterations): {launches / checks:.1f} per interval, "
+              f"{total / 1e3 / checks:.3f} ms device time per interval")
+
+
+def phase_sweep(torch, dev, main_run):
+    """Phase 8, with the sweep kernels' counts set to 0 before and read
+    after: the sweep engine solves through the per-scenario PDLP, and the
+    workflow runs plain torch, so neither CUDA sweep is launched."""
+    import tempfile
+
+    from dispatches_tpu_torch.kernels import pdhg_sweep as ks
+
+    ks.avg_sweep.launches = 0
+    ks.halpern_sweep.launches = 0
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="phase8-") as tmp:
+        work = Path(tmp)
+        store = sweep_direct(torch, dev, main_run, work)
+        sweep_resume(torch, dev, main_run, work, store)
+        sweep_serve(torch, dev, main_run, work, store)
+        sweep_report(torch, store)
+        surrogates(torch, dev, store)
+        clustering(torch, dev, main_run)
+        cashflows(torch, dev)
+        sweep_trace(torch, dev, main_run, work)
+    print(f"[phase8] {time.perf_counter() - t0:.1f} s; sweep kernel launches during it: "
+          f"halpern {ks.halpern_sweep.launches}, avg {ks.avg_sweep.launches}")
+    check(ks.halpern_sweep.launches == 0 and ks.avg_sweep.launches == 0,
+          "[phase8] the sweep engine launched a sweep kernel")
+
+
 def main():
     import torch
 
@@ -2106,11 +2471,15 @@ def main():
         fail("dispatches_tpu_torch/ is not beside chip_smoke.py")
     sys.path.insert(0, str(ROOT))
 
-    if sys.argv[1:] == ["--only-phase7"]:
-        # a development run of phase 7 alone: no kernel build, no result line
+    alone = {"7": lambda dev: phase_double_loop(torch, dev),
+             "8": lambda dev: phase_sweep(torch, dev, flagship(torch, dev))}
+    if sys.argv[1:2] == ["--only-phase"]:
+        # a development run of one phase alone: no kernel build, no result line
+        if sys.argv[2:] not in [[n] for n in alone]:
+            fail(f"--only-phase takes one of {', '.join(alone)}")
         phase_device_info(torch)
-        phase_double_loop(torch, torch.device("cuda"))
-        print("[only-phase7] done (no result line: not the smoke test's full run)")
+        alone[sys.argv[2]](torch.device("cuda"))
+        print(f"[only-phase {sys.argv[2]}] done (no result line: not the smoke test's full run)")
         return
     card = phase_device(torch)
     # the main path runs first, so its launch counts start from zero
@@ -2125,6 +2494,7 @@ def main():
     phase_serve_path(torch, dev, main_run, entry_run)
     phase_hydrogen(torch, dev, pem)
     phase_double_loop(torch, dev)
+    phase_sweep(torch, dev, main_run)
 
     replaces = {"halpern": "dispatches_tpu/solvers/pdlp_batch.py:196",
                 "avg": "dispatches_tpu/solvers/pdlp_batch.py:80"}

@@ -14,7 +14,13 @@ builders, ``detect_time_structure``, ``make_structured_kkt``,
 ``Tracker``/``Bidder``/``SelfScheduler``/``MarketSimulator`` and
 ``run_double_loop`` (``--device``),
 ``SolveService``, ``ExecutionPlan`` via ``PlanOptions.device``,
-``learn.fit``) run on ``cuda`` unless the caller passes ``device="cpu"``;
+``learn.fit``, ``sweep.run_sweep`` (its own plan or service; a caller's
+``plan=``/``service=`` brings its own device), ``train_revenue_surrogate``,
+``TrainNNSurrogates`` (``predict`` too), ``_train_mlp`` and ``mlp_apply``
+given numpy, ``kmeans_fit``, ``kmeans_fit_softdtw``,
+``RavenARMAROM.train_from_artifact``, ``ARMAModel.sample``,
+``generate_syn_realizations`` and the cash-flow functions given numpy) run on ``cuda`` unless the caller
+passes ``device="cpu"``;
 with no card and no ``device=`` they raise instead of carrying on quietly
 on the CPU.
 
@@ -33,8 +39,12 @@ tables, ``wind_battery_pem_optimize`` and
 ``wind_battery_pem_tank_turb_optimize``); the double loop (``core/
 config.py``, ``core/stacked.py``, ``grid/`` — model data, forecasters,
 tracker, bidders, coordinator, the RUC/SCED market and its readers —
-``MultiPeriodWindBattery`` and ``run_double_loop``) and the nuclear case
-study (``case_studies/nuclear``).
+``MultiPeriodWindBattery`` and ``run_double_loop``), the nuclear case
+study (``case_studies/nuclear``); and the design-space sweep engine with
+its result store, CLI and sweep->surrogate handoff (``sweep/``), the
+market-surrogate workflow (``workflow/``: clustering with soft-DTW, the
+surrogate MLPs and the six shipped surrogates, ``SimulationData``,
+``ManagedWorkflow``), cash flows and synthetic histories (``utils/``).
 """
 
 import torch

@@ -82,13 +82,22 @@ REGISTERED_FLAGS = {
     "OBS_BUFFER": "obs tracer ring-buffer capacity in events "
     "(obs.trace; default 65536)",
     "OBS_PROFILE": "AOT cost cards in the JAX package; not ported yet, so "
-    "a set value makes SolveService raise NotImplementedError",
+    "a set value makes SolveService and run_sweep raise "
+    "NotImplementedError",
     "OBS_EXPORT_DIR": "continuous telemetry export in the JAX package; "
     "not ported yet, so a set value makes SolveService raise "
     "NotImplementedError",
     "OBS_FLIGHT_DIR": "flight-recorder bundles in the JAX package; not "
-    "ported yet, so a set value makes SolveService raise "
+    "ported yet, so a set value makes SolveService and run_sweep raise "
     "NotImplementedError",
+    "OBS_LEDGER_DIR": "perf-ledger directory in the JAX package; not "
+    "ported yet, so a set value makes run_sweep raise NotImplementedError",
+    "SWEEP_CHUNK": "sweep-engine points per chunk == checkpoint/resume "
+    "granularity (sweep.SweepOptions.from_env)",
+    "SWEEP_MAX_RETRIES": "sweep-engine point-wise retry budget before a "
+    "non-finite result is quarantined (sweep.SweepOptions.from_env)",
+    "SWEEP_RESULT_DIR": "sweep-engine default ResultStore directory "
+    "(sweep.SweepOptions.from_env)",
 }
 
 _PREFIX = "DISPATCHES_TPU_"

@@ -22,7 +22,7 @@ from typing import Tuple
 
 import numpy as np
 
-from dispatches_tpu_torch.utils.tree import tree_leaves, tree_structure
+from dispatches_tpu_torch.utils.tree import tree_leaves, tree_structure, treedef_repr
 
 
 def _host(leaf) -> np.ndarray:
@@ -47,9 +47,12 @@ def params_signature(params) -> Tuple:
 
 def request_fingerprint(params) -> str:
     """Content hash of a params tree (structure + leaf bytes) — the
-    per-request identity the warm-start caches are keyed by."""
+    per-request identity the warm-start caches are keyed by, and the
+    base-params identity a sweep store pins.  The structure is hashed as
+    the JAX package's ``repr(treedef)`` text, so a params tree of host
+    leaves hashes the same in both packages."""
     h = hashlib.blake2b(digest_size=16)
-    h.update(repr(tree_structure(params)).encode())
+    h.update(treedef_repr(params).encode())
     for leaf in tree_leaves(params):
         arr = _host(leaf)
         h.update(arr.dtype.str.encode())

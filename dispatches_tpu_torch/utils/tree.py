@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
 
-__all__ = ["tree_leaves", "tree_map", "tree_structure"]
+__all__ = ["tree_leaves", "tree_map", "tree_structure", "treedef_repr"]
 
 
 def _is_namedtuple(x) -> bool:
@@ -38,6 +38,31 @@ def tree_structure(tree) -> Tuple:
     if isinstance(tree, (list, tuple)):
         return (type(tree).__name__,) + tuple(tree_structure(v) for v in tree)
     return ("*",)
+
+
+def treedef_repr(tree) -> str:
+    """The text ``repr(jax.tree_util.tree_structure(tree))`` gives for a
+    tree of dicts, lists, tuples, NamedTuples, ``None`` and leaves, e.g.
+    ``PyTreeDef({'fixed': {}, 'p': {'a': *}})``, and a NamedTuple as
+    ``CustomNode(namedtuple[Name], [*, *])``: hashes keyed by it equal the
+    JAX package's, and a NamedTuple hashes apart from a tuple."""
+
+    def body(t) -> str:
+        if t is None:
+            return "None"
+        if _is_namedtuple(t):
+            inner = ", ".join(body(v) for v in t)
+            return f"CustomNode(namedtuple[{type(t).__name__}], [{inner}])"
+        if isinstance(t, dict):
+            return "{" + ", ".join(f"{k!r}: {body(t[k])}" for k in sorted(t)) + "}"
+        if isinstance(t, list):
+            return "[" + ", ".join(body(v) for v in t) + "]"
+        if isinstance(t, tuple):
+            inner = ", ".join(body(v) for v in t)
+            return "(" + inner + ("," if len(t) == 1 else "") + ")"
+        return "*"
+
+    return f"PyTreeDef({body(tree)})"
 
 
 def tree_map(fn: Callable, tree, *rest):

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Rehearse ``chip_smoke.py``'s hydrogen-hybrid phase on the CPU, and count
-the work one interior-point Newton iteration dispatches.
+"""Rehearse phases 6, 7 and 8 of ``chip_smoke.py`` on the CPU, and count
+the operations their solver iterations dispatch.
 
     python3 tools/cpu_rehearsal.py ops [--horizon 24]
     python3 tools/cpu_rehearsal.py phase6 [units] [pem] [batch] [hybrid]
     python3 tools/cpu_rehearsal.py ops7 [--buses 73]
     python3 tools/cpu_rehearsal.py phase7 [--buses 5]
+    python3 tools/cpu_rehearsal.py phase8 [--ops-only]
 
 ``ops`` counts the aten operations that one Newton iteration of the IPM
 dispatches (the difference between ``max_iter=3`` and ``max_iter=1``,
@@ -24,6 +25,13 @@ synthetic case of ``--buses`` buses (73: phase 7's size): the SCED LP
 the Tracker (H = 4).  ``phase7`` runs phase 7 on the CPU on the synthetic
 case of ``--buses`` buses (5: the tier-1 tests' size; the card runs 73),
 the trace replaced by a plain call.
+
+``phase8`` counts the aten operations of phase 8's sweep: per PDLP check
+interval of a 128-lane chunk of the sweep's points (the difference between
+``max_iter=120`` and ``max_iter=40``, halved) and per IRR Newton step
+(``iters=3`` against ``iters=1``); then, unless ``--ops-only``, it runs
+phase 8 on the CPU at the card's sizes (732 points, chunks of 128) and
+prints the phase's own lines, seconds per chunk among them.
 """
 
 from __future__ import annotations
@@ -52,6 +60,13 @@ class _OpCount(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         self.n += 1
         return func(*args, **(kwargs or {}))
+
+
+def _stub_cuda():
+    torch.cuda.synchronize = lambda *a, **k: None
+    torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    torch.cuda.memory_allocated = lambda *a, **k: 0
 
 
 def ops_per_iteration(nlp, params, kkt):
@@ -90,9 +105,7 @@ def count_ops(horizon):
 
 
 def phase6(parts):
-    torch.cuda.synchronize = lambda *a, **k: None
-    torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
-    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    _stub_cuda()
     failed = []
 
     def check(cond, msg):
@@ -167,9 +180,7 @@ def count_ops7(buses):
 def phase7(buses):
     import tempfile
 
-    torch.cuda.synchronize = lambda *a, **k: None
-    torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
-    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    _stub_cuda()
     failed = []
 
     def check(cond, msg):
@@ -190,6 +201,62 @@ def phase7(buses):
     print(f"{len(failed)} check(s) failed")
 
 
+def count_ops8():
+    from dispatches_tpu_torch.solvers import PDLPOptions, make_pdlp_solver
+    from dispatches_tpu_torch.utils import irr
+
+    run = cs.flagship(torch, CPU)
+    nlp, spec = run["nlp"], cs._sweep_spec(run["lmps"])
+    vals = spec.values_for(np.arange(cs.SWEEP_CHUNK))
+    d = nlp.default_params()
+    params = {"p": {**d["p"], "lmp": vals["lmp"]},
+              "fixed": {**d["fixed"], "battery.nameplate_power": vals["battery.nameplate_power"]}}
+    counts = {}
+    for it in (40, 120):
+        solver = make_pdlp_solver(nlp, PDLPOptions(max_iter=it, **cs.SWEEP_PDLP),
+                                  lp_data=run["lp"], device=CPU)
+        mode = _OpCount()
+        with mode:
+            solver(params)
+        counts[it] = mode.n
+    print(f"PDLP f64, {cs.SWEEP_CHUNK} lanes: {(counts[120] - counts[40]) / 2:.1f} "
+          "operations per check interval (40 PDHG steps)")
+    cash = np.array([-1000.0] + [150.0] * 10)
+    counts = {}
+    for it in (1, 3):
+        mode = _OpCount()
+        with mode:
+            irr(cash, iters=it, device=CPU)
+        counts[it] = mode.n
+    print(f"irr: {(counts[3] - counts[1]) / 2:.1f} operations per Newton step")
+
+
+def phase8():
+    import tempfile
+
+    _stub_cuda()
+    failed = []
+
+    def check(cond, msg):
+        if not cond:
+            print(f"check failed: {msg}")
+            failed.append(msg)
+
+    cs.check = check
+    cs.profile_run = lambda torch_, run, tag: (run(), None, {}, 0.0, 0.0)
+    run = cs.flagship(torch, CPU)
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        store = cs.sweep_direct(torch, CPU, run, work)
+        cs.sweep_resume(torch, CPU, run, work, store)
+        cs.sweep_serve(torch, CPU, run, work, store)
+        cs.sweep_report(torch, store)
+        cs.surrogates(torch, CPU, store)
+        cs.clustering(torch, CPU, run)
+        cs.cashflows(torch, CPU)
+    print(f"{len(failed)} check(s) failed")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -202,8 +269,15 @@ def main(argv=None):
     o7.add_argument("--buses", type=int, default=73, choices=[5, 73])
     p7 = sub.add_parser("phase7", help="chip_smoke.py phase 7 on the CPU")
     p7.add_argument("--buses", type=int, default=5, choices=[5, 73])
+    p8 = sub.add_parser("phase8", help="chip_smoke.py phase 8 on the CPU")
+    p8.add_argument("--ops-only", action="store_true",
+                    help="only count operations per PDLP check and IRR step")
     args = ap.parse_args(argv)
-    if args.cmd == "ops":
+    if args.cmd == "phase8":
+        count_ops8()
+        if not args.ops_only:
+            phase8()
+    elif args.cmd == "ops":
         count_ops(args.horizon)
     elif args.cmd == "ops7":
         count_ops7(args.buses)
