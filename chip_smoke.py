@@ -49,7 +49,7 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
 6. the hydrogen hybrid (float64 IPM; the sweep kernels' counts are read
    around it): ``[h2-units]`` the PEM, simple and detailed tank and
    hydrogen turbine recipes of tests/test_models.py at its anchors;
-   ``[pem]`` ``wind_battery_pem_optimize`` at T = 24 and 168 against
+   ``[pem]`` ``wind_battery_pem_optimize`` at T = 24 (168 cut for phase 9) against
    HiGHS; ``[pem-batch]`` bench.py's 32-lane PEM recipe through the IPM,
    status-0 lanes against HiGHS; ``[pem-pdlp]`` its LMPs widened to 366
    lanes through the batch PDLP on the CUDA sweeps (phase 3 also holds
@@ -76,11 +76,11 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    torch.profiler.
 8. the design-space sweep and the sweep->surrogate workflow (float64
    per-scenario PDLP and plain torch; the sweep kernels' counts are read
-   around it): ``[sweep]`` ``run_sweep`` over 366 price profiles x 2 LHS
-   battery sizes (732 points) on phase 2's model, direct backend, chunks
+   around it): ``[sweep]`` ``run_sweep`` over 366 price profiles x 1 LHS
+   battery size (366 points; 2 sizes until phase 9) on phase 2's model, direct backend, chunks
    of 128, tol 1e-8: the store complete, every point OK or retried, 16
    points within 1e-6 of HiGHS; ``[sweep-resume]`` the same spec cut
-   after 3 chunks and resumed, every store file but progress.json
+   after 1 chunk and resumed, every store file but progress.json
    byte-equal to ``[sweep]``'s; ``[sweep-serve]`` the first 64 points
    through the serve backend, within 1e-8 of ``[sweep]``;
    ``[sweep-report]`` ``python -m dispatches_tpu_torch.sweep --report``
@@ -92,10 +92,37 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    soft-DTW k-means recipe; ``[cashflow]`` NPV, IRR and PI at
    tests/test_utils.py's anchors; ``[sweep-trace]`` one warmed 128-point
    chunk under torch.profiler.
+9. serve durability and the fossil base (float64; the sweep kernels'
+   counts are read around it): ``[journal]`` phase 2's 366 requests
+   (and 8 IPM ones) through a journaled service, every accept record
+   decoding bitwise to its params, an empty clean replay after
+   ``drain()``; ``[crash]`` a child process (this script with a private
+   flag) runs a journaled service, accepts the 366 requests, serves one
+   batch of 64 and dies with ``os._exit``; a service recovering its
+   directory resubmits exactly the open set once each and brings it to
+   DONE (generation 2), 16 objectives within 1e-6 of HiGHS and all
+   within 1e-6 of the uninterrupted runs; ``[snapshot]`` a service
+   recovered from ``[journal]``'s drained directory restores the warm
+   LRU, the bucket's warm index, P² markers and predictor weights
+   bitwise, and its next batch starts warm; ``[traffic]`` a bursty
+   (MMPP) stream of ~256 AR(1)-perturbed requests in schedule order on
+   the service clock, all DONE; ``[iapws]`` IAPWS-95 Tables 7 and 8 and
+   the transport check points on the card (1e-7 and 1e-6), within 1e-12
+   of the CPU; ``[usc]`` the 437 MW USC plant built, initialized on the
+   host and solved by Newton on the card at tests/test_usc_plant.py's
+   anchors; ``[usc-trace]`` one warmed Newton solve under
+   torch.profiler; ``[usc-power]`` 300 MW with the boiler flow free;
+   ``[usc-pressure]`` 27 MPa main steam, re-initialized (cut for time,
+   ``USC_PRESSURE_CUT``);
+   ``[usc-horizon]`` the horizon-4 plant with per-period boiler flows,
+   each power within 1e-6 of the JAX package's; ``[usc-ipm]`` the plant
+   through ``solve_plant`` on the IPM, 3 iterations on the card and on the
+   CPU, their iterates within 1e-6 (a whole IPM solve of this square
+   system does not converge, see PERF.md).
 
 Phase 3 times every kernel tier at B = 366, 1024 and 4096.
-``--only-phase 7`` and ``--only-phase 8`` run one of those phases alone,
-for development (no kernel build, no result line).  The line
+``--only-phase 7``, ``--only-phase 8`` and ``--only-phase 9`` run one of
+those phases alone, for development (no kernel build, no result line).  The line
 before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -105,6 +132,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1017,6 +1045,8 @@ def serve_full(torch, main_run):
         slowest = int(np.delete(np.arange(N_SCENARIOS), flushing)[np.argmax(quiet)])
         check(all(r.status == "DONE" for r in res), f"[serve] round {rnd}: a request failed")
         objs = np.asarray([r.obj for r in res])
+        if rnd == 1:
+            main_run["serve_obj"] = objs  # phase 9's [crash] holds recovery to it
         check(objs.shape == (N_SCENARIOS,) and np.all(np.isfinite(objs)),
               f"[serve] round {rnd}: objectives not finite")
         err = np.abs(objs[:N_HIGHS] - ref) / np.maximum(np.abs(ref), 1.0)
@@ -1193,7 +1223,9 @@ H2_T = 24            # tests/test_re_pem_hybrid.py's horizon
 # phase 7 (it converges there: 162 iterations on the CPU with
 # `python3 tools/cpu_rehearsal.py phase6 hybrid`)
 HYB_T = 12
-H2_T_LONG = 168      # [pem]'s second horizon: the same formulas over a week
+# [pem]'s second horizon, T = 168, is cut to make room for phase 9
+# (tests/test_torch_re_hybrid.py holds wind_battery_pem_optimize at T = 24)
+PEM_HORIZONS = (H2_T,)
 PEM_BATCH = 32       # [pem-batch]: bench.py's nlp_pem24h lanes
 HYB_TRACE_ITERS = 15   # [hybrid-trace]: Newton iterations under the profiler
 HYB_STEP_RTOL = 1e-6   # [hybrid-dense]: the KKT paths' first primal steps
@@ -1346,11 +1378,11 @@ def h2_units(torch, dev):
 
 
 def pem_optimize(torch, dev):
-    """``wind_battery_pem_optimize`` at T = 24 and 168, each against HiGHS
+    """``wind_battery_pem_optimize`` at each of PEM_HORIZONS, against HiGHS
     on the port's own LP data."""
     from dispatches_tpu_torch.case_studies.renewables import wind_battery_pem_optimize
 
-    for T_p in (H2_T, H2_T_LONG):
+    for T_p in PEM_HORIZONS:
         out = design_vs_highs(torch, dev, "pem", wind_battery_pem_optimize, T_p, _h2_params(T_p))
         print(f"[pem]   pem_kw={float(out.solution['pem_system_capacity']):.3f}")
 
@@ -2130,11 +2162,13 @@ def phase_double_loop(torch, dev):
 # phase 8: the design-space sweep, its store and the sweep->surrogate workflow
 # ---------------------------------------------------------------------
 
-SWEEP_CHUNK = 128        # [sweep]: 366 x 2 = 732 points in 6 chunks (the last 92 live)
-SWEEP_LHS_N = 2          # battery sizes per price profile (cut to 1 first if over time)
+SWEEP_CHUNK = 128        # [sweep]: 366 points in 3 chunks (the last 110 live)
+# battery sizes per price profile: 2 (732 points) before phase 9, cut to 1
+# to make room for it (phase 8's own first cut)
+SWEEP_LHS_N = 1
 SWEEP_PDLP = {"tol": 1e-8, "dtype": "float64"}
-SWEEP_HIGHS_PER_SIZE = 8  # [sweep]: HiGHS-checked points per battery size
-SWEEP_RESUME_CHUNKS = 3  # [sweep-resume]: chunks in the first, cut-short run
+SWEEP_HIGHS_PER_SIZE = 16 // SWEEP_LHS_N  # [sweep]: 16 HiGHS-checked points in all
+SWEEP_RESUME_CHUNKS = 1  # [sweep-resume]: chunks in the first, cut-short run (3 before phase 9)
 SWEEP_SERVE_N = 64       # [sweep-serve]: points through the serve backend
 SWEEP_SERVE_RTOL = 1e-8  # [sweep-serve] objectives vs [sweep]'s
 N_CLUSTERS = 20          # [cluster]: the shipped RE surrogate's cluster count
@@ -2166,7 +2200,7 @@ def _store_files(path):
 
 
 def sweep_direct(torch, dev, main_run, work):
-    """[sweep]: the 732-point spec through ``run_sweep``'s direct backend,
+    """[sweep]: the 366-point spec through ``run_sweep``'s direct backend,
     float64 PDLP at tol 1e-8; 16 points against HiGHS."""
     from dispatches_tpu_torch.obs import registry
     from dispatches_tpu_torch.sweep import STATUS_OK, STATUS_RETRIED, run_sweep
@@ -2462,6 +2496,549 @@ def phase_sweep(torch, dev, main_run):
           "[phase8] the sweep engine launched a sweep kernel")
 
 
+# ---------------------------------------------------------------------
+# phase 9: serve durability (journal, snapshots, traffic) and the fossil
+# base (IAPWS-95, the Newton solver, the USC plant)
+# ---------------------------------------------------------------------
+
+CRASH_FLAG = "--crash-child"   # private: runs the [crash] child process
+CRASH_CMD = [sys.executable, str(Path(__file__).resolve()), CRASH_FLAG]
+CRASH_RC = 17                  # the child's one intended death
+CRASH_BATCH = 64               # [crash]: lanes the child serves before it dies
+N_IPM_WARM = 8                 # [journal]: IPM requests that fill the warm LRU
+USC_MAIN_FLOW_FRACS = (1.0, 0.9, 0.8, 0.7)   # [usc-horizon]'s boiler flows
+# [usc-horizon]: the JAX package's plant powers for those flows (MW; a run
+# on a CPU, held by tests/test_torch_usc.py::test_horizon_plant_matches_jax)
+USC_HORIZON_MW = (436.46443365, 390.78256508, 345.49945713, 300.58482839)
+USC_RTOL = 1e-6                # [usc-horizon] powers vs the JAX package's
+# [usc-pressure] (27 MPa, re-initialized) is cut for time;
+# tests/test_torch_usc.py::test_change_pressure (slow) holds it on the CPU
+USC_PRESSURE_CUT = True
+USC_IPM_ITERS = 3              # [usc-ipm]: IPM iterations on the card and on the CPU
+USC_IPM_RTOL = 1e-6            # [usc-ipm]: their iterates (as [hybrid-dense])
+IAPWS_CARD_RTOL = 1e-12        # [iapws]: the card vs the CPU, dimensionless
+TRAFFIC_WAIT_MS = 1500.0       # [traffic]: the batch-close wait on the service clock
+
+
+def _journal_records(d):
+    """Every record of the journal in ``d``, in write order."""
+    out = []
+    for seg in sorted(Path(d).glob("journal-*.jsonl")):
+        for line in seg.read_text(encoding="utf-8").splitlines():
+            if line.strip():
+                out.append(json.loads(line))
+    return out
+
+
+def _same_tree(a, b):
+    """Bitwise equality of two params trees of numpy leaves (dtype too)."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same_tree(a[k], b[k]) for k in a)
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def _bucket_state(svc, label):
+    """What a restore must carry over for one bucket: its index state as
+    journal bytes, its P² markers, its guard and its predictor weights."""
+    from dispatches_tpu_torch.serve import journal
+
+    b = next(b for b in svc._buckets.values() if b.stats.label == label)
+    p2 = b.est._p95
+    trainer = b.predict_trainer
+    return b, {
+        "index": json.dumps(journal.encode_tree(b.warm_index.to_state())),
+        "p2": (p2.p, list(p2._q), list(p2._n), list(p2._np), list(p2._dn), p2._count),
+        "guard": (b.warm_guard.cold_iters_ema, b.warm_guard.mispredicts),
+        "weights": (None if trainer is None or trainer.predictor is None else
+                    {k: np.asarray(v).tobytes() for k, v in trainer.predictor.params.items()}),
+    }
+
+
+def serve_journal(torch, dev, main_run, work):
+    """[journal]: phase 2's 366 requests (and N_IPM_WARM through an IPM
+    bucket, which fills the warm LRU) through a journaled service; every
+    accept record decodes bitwise to the params submitted; after drain()
+    the replay's open set is empty behind the clean-shutdown marker."""
+    from dispatches_tpu_torch.serve import ServeOptions, SolveService, journal
+
+    nlp, lmps, cfs = main_run["nlp"], main_run["lmps"], main_run["cfs"]
+    d = work / "journal"
+    params = [_flagship_params(nlp, lmps, cfs, s) for s in range(N_SCENARIOS)]
+    svc = SolveService(ServeOptions.from_env(max_wait_ms=SERVE_WAIT_MS),
+                       journal_dir=str(d), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = [svc.submit(nlp, p) for p in params]
+    svc.flush_all()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    res = [h.result() for h in hs]
+    check(all(r.status == "DONE" for r in res), "[journal] a request did not finish DONE")
+    objs = np.asarray([r.obj for r in res])
+    check(np.all(np.isfinite(objs)), "[journal] objectives not finite")
+    ipm = [svc.submit(nlp, params[s], solver="ipm") for s in range(N_IPM_WARM)]
+    svc.flush_all()
+    check(all(h.result().status == "DONE" for h in ipm), "[journal] an IPM request failed")
+    recs = _journal_records(d)
+    accepts = {r["id"]: r for r in recs if r["k"] == "a"}
+    check(len(accepts) == N_SCENARIOS + N_IPM_WARM, f"[journal] {len(accepts)} accept records")
+    bad = [h.request_id for h, p in zip(hs + ipm, params + params[:N_IPM_WARM])
+           if not _same_tree(journal.decode_tree(accepts[h.request_id]["params"]), p)]
+    check(not bad, f"[journal] payloads of requests {bad[:5]} do not decode bitwise")
+    states = {b.stats.label: _bucket_state(svc, b.stats.label)[1]
+              for b in svc._buckets.values() if b.warm}
+    lru = {k: dict(v) for k, v in svc._warm._d.items()}
+    out = svc.drain()
+    rep = journal.replay(str(d))
+    size = sum(f.stat().st_size for f in d.glob("journal-*.jsonl"))
+    dur = svc.metrics()["durability"]
+    print(f"[journal] {N_SCENARIOS} requests in {dt:.2f} s = {N_SCENARIOS / dt:.1f} requests/s "
+          f"through a journaled service (+{N_IPM_WARM} IPM); {len(recs)} records in "
+          f"{len(list(d.glob('journal-*.jsonl')))} segments, {size / 2**20:.2f} MiB; every payload "
+          f"bitwise; snapshot writes {dur['snapshot_writes']} (drain's: {out['snapshot'] is not None});"
+          f" replay after drain: {len(rep.open_requests)} open, clean_shutdown {rep.clean_shutdown}")
+    check(out["snapshot"] is not None, "[journal] drain() wrote no snapshot")
+    check(rep.open_requests == [] and rep.clean_shutdown,
+          "[journal] the replay after drain() is not empty and clean")
+    return {"dir": d, "objs": objs, "params": params, "states": states, "lru": lru,
+            "generation": svc.generation}
+
+
+def crash_child(journal_dir, device="cuda"):
+    """The [crash] child: a journaled service on the card accepts phase
+    2's 366 requests (max_batch above the stream, so no submit flushes),
+    serves the oldest CRASH_BATCH of them as one batch, and dies with
+    os._exit — no drain, no flush, no clean marker."""
+    import dataclasses
+
+    import torch
+
+    from dispatches_tpu_torch.serve import ServeOptions, SolveService
+
+    dev = torch.device(device)
+    main_run = flagship(torch, dev)
+    nlp, lmps, cfs = main_run["nlp"], main_run["lmps"], main_run["cfs"]
+    svc = SolveService(ServeOptions.from_env(max_batch=2 * N_SCENARIOS,
+                                             max_wait_ms=SERVE_WAIT_MS),
+                       journal_dir=journal_dir, device=dev)
+    hs = [svc.submit(nlp, _flagship_params(nlp, lmps, cfs, s)) for s in range(N_SCENARIOS)]
+    svc.options = dataclasses.replace(svc.options, max_batch=CRASH_BATCH)
+    hs[0].result()  # the oldest CRASH_BATCH requests, one batch, fenced
+    print(json.dumps({"done": sum(h.done() for h in hs)}), flush=True)
+    os._exit(CRASH_RC)
+
+
+def serve_crash(torch, dev, main_run, jr, work):
+    """[crash]: a child process running a journaled service dies after
+    its first completed batch; a new service recovers from its
+    directory, resubmits exactly the open set once each, and brings all
+    of it to DONE; 16 recovered objectives against HiGHS, every one
+    against the uninterrupted [journal] (and [serve]) results."""
+    from dispatches_tpu_torch.serve import ServeOptions, SolveService, journal
+    from dispatches_tpu_torch.serve.bucket import request_fingerprint
+
+    nlp, lp, lmps, cfs = main_run["nlp"], main_run["lp"], main_run["lmps"], main_run["cfs"]
+    d = work / "crash"
+    t0 = time.perf_counter()
+    child = subprocess.run(CRASH_CMD + [str(d)], capture_output=True, text=True, timeout=600)
+    t_child = time.perf_counter() - t0
+    check(child.returncode == CRASH_RC,
+          f"[crash] the child exited {child.returncode}, not {CRASH_RC}: {child.stderr[-2000:]}")
+    done = json.loads(child.stdout.strip().splitlines()[-1])["done"]
+    check(0 < done < N_SCENARIOS, f"[crash] the child died with {done} of {N_SCENARIOS} done")
+    rep = journal.replay(str(d))
+    open_ids = [r["id"] for r in rep.open_requests]
+    check(not rep.clean_shutdown and rep.accepted == N_SCENARIOS
+          and len(open_ids) == N_SCENARIOS - done,
+          f"[crash] journal: {rep.accepted} accepted, {len(open_ids)} open, clean "
+          f"{rep.clean_shutdown}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc = SolveService(ServeOptions.from_env(max_wait_ms=SERVE_WAIT_MS), recover_dir=str(d),
+                       recover_nlp=nlp, device=dev)
+    rec = svc.recovery
+    hs = svc.recovered_handles
+    svc.flush_all()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(rec["recovered"] == len(open_ids) and rec["lost"] == 0 and len(hs) == len(open_ids),
+          f"[crash] recovery {rec}")
+    check(svc.generation == 2, f"[crash] generation {svc.generation}")
+    # each open request resubmitted once: the recovered params are the
+    # open set's, one for one, in accept order (request id s + 1 is scenario s)
+    scen = [i - 1 for i in open_ids]
+    check(all(_same_tree(h.params, jr["params"][s]) for h, s in zip(hs, scen)),
+          "[crash] the recovered requests are not the open set")
+    check(len({request_fingerprint(h.params) for h in hs}) == len(hs),
+          "[crash] a request was resubmitted twice")
+    res = [h.result() for h in hs]
+    check(all(r.status == "DONE" for r in res), "[crash] a recovered request did not finish DONE")
+    objs = np.asarray([r.obj for r in res])
+    ref = highs_objectives(torch, nlp, lp, lmps[scen[:N_HIGHS]], cfs[scen[:N_HIGHS]])
+    err_h = np.abs(objs[:N_HIGHS] - ref) / np.maximum(np.abs(ref), 1.0)
+    want = jr["objs"][scen]
+    err_j = np.abs(objs - want) / np.maximum(np.abs(want), 1.0)
+    line = (f"[crash] child (pid exit {child.returncode}) died with {done} of {N_SCENARIOS} "
+            f"DONE after {t_child:.1f} s; recovery resubmitted {rec['recovered']} (lost "
+            f"{rec['lost']}, torn {rec['torn_records']}, {rec['recovery_ms']:.1f} ms) and served "
+            f"them in {dt:.2f} s, generation {svc.generation}; obj_rel_err_vs_highs({N_HIGHS}) max "
+            f"{err_h.max():.3e}; vs [journal]'s uninterrupted run max {err_j.max():.3e}")
+    if "serve_obj" in main_run:
+        want_s = main_run["serve_obj"][scen]
+        err_s = np.abs(objs - want_s) / np.maximum(np.abs(want_s), 1.0)
+        line += f"; vs [serve]'s max {err_s.max():.3e}"
+        check(err_s.max() <= IPM_RTOL, f"[crash] {err_s.max():.3e} from [serve]'s objectives")
+    print(line)
+    check(err_h.max() <= IPM_RTOL, f"[crash] {err_h.max():.3e} from HiGHS")
+    check(err_j.max() <= IPM_RTOL, f"[crash] {err_j.max():.3e} from [journal]'s objectives")
+    svc.drain()
+    check(journal.replay(str(d)).open_requests == [], "[crash] requests still open after drain")
+
+
+def serve_snapshot(torch, dev, main_run, jr):
+    """[snapshot]: a service recovered from [journal]'s drained directory
+    restores the warm LRU, and each bucket's index, P² markers, guard and
+    predictor weights (bitwise) as its label is rebuilt; the first batch
+    of a third pass starts warm."""
+    from dispatches_tpu_torch.serve import ServeOptions, SolveService
+    from dispatches_tpu_torch.serve.bucket import request_fingerprint
+    from dispatches_tpu_torch.solvers.pdlp import START_KIND_NAMES
+
+    nlp, params = main_run["nlp"], jr["params"]
+    svc = SolveService(ServeOptions.from_env(max_wait_ms=SERVE_WAIT_MS),
+                       recover_dir=str(jr["dir"]), recover_nlp=nlp, device=dev)
+    rec = svc.recovery
+    check(rec["recovered"] == 0 and rec["clean_shutdown"], f"[snapshot] recovery {rec}")
+    check(svc.generation == jr["generation"] + 1, f"[snapshot] generation {svc.generation}")
+    lru = {k: dict(v) for k, v in svc._warm._d.items()}
+    check(lru.keys() == jr["lru"].keys() and all(
+        _same_tree(lru[k], jr["lru"][k]) for k in lru), "[snapshot] the warm LRU differs")
+    first = svc.submit(nlp, params[0])  # rebuilds the PDLP bucket: its state applies
+    label = first.bucket_label
+    bucket, state = _bucket_state(svc, label)
+    want = jr["states"][label]
+    for key in ("index", "p2", "guard", "weights"):
+        check(state[key] == want[key], f"[snapshot] bucket {label}: {key} differs")
+    check(want["weights"] is not None, f"[snapshot] bucket {label} had no fitted predictor")
+    dev_w = {k: v.cpu().numpy().tobytes() for k, v in bucket.predict_weights.items()}
+    check(dev_w == want["weights"], "[snapshot] the device copy of the predictor differs")
+    n_index = len(bucket.warm_index)
+    # a request the restored index holds (its [journal] lane converged)
+    # must start from it; one it does not hold may start cold
+    held = [first.start is not None and int(first.start[2]) != 0] + [
+        bucket.warm_index.exact((label, request_fingerprint(p))) is not None
+        for p in params[1:CRASH_BATCH]]
+    hs = [first] + [svc.submit(nlp, p) for p in params[1:CRASH_BATCH]]
+    svc.flush_all()
+    kinds = np.asarray([int(h.result().result.start_kind) for h in hs])
+    counts = np.bincount(kinds, minlength=4)
+    print(f"[snapshot] restored generation {svc.generation}: warm LRU {len(lru)} entries, bucket "
+          f"{label}: index {n_index} entries, P2 count {state['p2'][5]}, predictor "
+          f"{len(state['weights'])} tensors, all bitwise; third pass, first batch of "
+          f"{len(hs)} ({sum(held)} held by the index): starts "
+          + ", ".join(f"{START_KIND_NAMES[k]} {counts[k]}" for k in range(4)))
+    check(not np.any(kinds[np.asarray(held)] == 0) and counts[0] < len(hs) // 2,
+          "[snapshot] the third pass's first batch started cold")
+    check(all(h.result().status == "DONE" for h in hs), "[snapshot] a request failed")
+    svc.drain()
+
+
+class _WarpClock:
+    """The service clock for [traffic]: real time, except that an idle gap
+    before the next scheduled arrival is skipped, not slept."""
+
+    def __init__(self):
+        self.base, self.real0 = 0.0, time.perf_counter()
+
+    def __call__(self):
+        return self.base + (time.perf_counter() - self.real0)
+
+    def advance_to(self, t):
+        if self() < t:
+            self.base, self.real0 = t, time.perf_counter()
+
+
+def serve_traffic(torch, dev, main_run):
+    """[traffic]: a bursty (MMPP) stream of ~256 AR(1)-perturbed phase-2
+    requests submitted in schedule order on the service's clock."""
+    from dispatches_tpu_torch.serve import ServeOptions, SolveService, traffic
+
+    nlp, lmps, cfs = main_run["nlp"], main_run["lmps"], main_run["cfs"]
+    spec = traffic.TrafficSpec(process="bursty", rate_rps=24.0, duration_s=3.0, seed=3,
+                               burst_factor=8.0, dwell_off_s=0.6, dwell_on_s=0.3,
+                               perturb=("lmp",), rho=0.9, sigma=0.05)
+    reqs = traffic.generate(spec, _flagship_params(nlp, lmps, cfs, 0))
+    check(200 <= len(reqs) <= 320, f"[traffic] {len(reqs)} requests, not about 256")
+    clock = _WarpClock()
+    # one submit at a time: a batch closes at the first submit after its
+    # oldest request waited TRAFFIC_WAIT_MS, so the wait must outlast a
+    # batch's solve (~0.3-1.4 s on the card, [serve]) or every batch
+    # carries one request
+    svc = SolveService(ServeOptions.from_env(max_wait_ms=TRAFFIC_WAIT_MS), clock=clock,
+                       device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = []
+    for r in reqs:
+        clock.advance_to(r.t)
+        hs.append(svc.submit(nlp, r.params, deadline_ms=r.deadline_ms))
+    svc.flush_all()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    span = clock() - reqs[0].t
+    res = [h.result() for h in hs]
+    check(all(r.status == "DONE" for r in res), "[traffic] a request did not finish DONE")
+    m = svc.metrics()
+    print(f"[traffic] bursty spec (rate {spec.rate_rps} rps x{spec.burst_factor} bursts, "
+          f"{spec.duration_s} s, seed {spec.seed}): {len(reqs)} requests over {reqs[-1].t:.2f} s of "
+          f"schedule, served in {span:.2f} s of service clock = {len(reqs) / span:.1f} requests/s "
+          f"({wall:.2f} s wall), latency {_pct([r.latency_ms for r in res])}, "
+          f"{m['batches']} batches (max_wait_ms {TRAFFIC_WAIT_MS:g}), occupancy "
+          f"{m['occupancy_mean']:.3f}")
+
+
+def phase_iapws_card(torch, dev):
+    """[iapws]: Tables 7 and 8 of the IAPWS-95 release and the 2008/2011
+    transport check points on the card, against the published values and
+    against the same functions on the CPU."""
+    from dispatches_tpu_torch.properties import iapws95 as w
+    from dispatches_tpu_torch.properties import iapws_transport as tr
+
+    t7 = np.array([  # T [K], rho [kg/m3], P [MPa], cv, s [kJ/kg/K], w [m/s]
+        (300.0, 0.9965560e3, 0.992418352e-1, 4.13018112, 0.393062643, 1501.51914),
+        (300.0, 0.1005308e4, 0.200022515e2, 4.06798347, 0.387405401, 1534.92501),
+        (300.0, 0.1188202e4, 0.700004704e3, 3.46135580, 0.132609616, 2443.57992),
+        (500.0, 0.435000e0, 0.999679423e-1, 1.50817541, 7.94488271, 548.314253),
+        (500.0, 0.453200e1, 0.999938125e0, 1.66991025, 6.82502725, 535.739001),
+        (500.0, 0.838025e3, 0.100003858e2, 3.22106219, 2.56690919, 1271.28441),
+        (500.0, 0.1084564e4, 0.700000405e3, 3.07437693, 2.03237509, 2412.00877),
+        (647.0, 0.358000e3, 0.220384756e2, 6.18315728, 4.32092307, 252.145078),
+        (900.0, 0.241000e0, 0.100062559e0, 1.75890657, 9.16653194, 724.027147),
+        (900.0, 0.526150e2, 0.200000690e2, 1.93510526, 6.59070225, 698.445674),
+        (900.0, 0.870769e3, 0.700000006e3, 2.66422350, 4.17223802, 2019.33608)])
+    t8 = np.array([(275.0, 0.698451167e-3, 0.999887406e3, 0.550664919e-2),
+                   (450.0, 0.932203564e0, 0.890341250e3, 0.481200360e1),
+                   (625.0, 0.169082693e2, 0.567090385e3, 0.118290280e3)])
+    visc = np.array([(298.15, 998.0, 889.735100), (298.15, 1200.0, 1437.649467),
+                     (373.15, 1000.0, 307.883622), (433.15, 1.0, 14.538324),
+                     (433.15, 1000.0, 217.685358), (873.15, 1.0, 32.619287),
+                     (873.15, 100.0, 35.802262), (873.15, 600.0, 77.430195),
+                     (1173.15, 1.0, 44.217245), (1173.15, 100.0, 47.640433),
+                     (1173.15, 400.0, 64.154608)])
+    cond = np.array([(298.15, 0.0, 18.4341883), (298.15, 998.0, 607.712868),
+                     (298.15, 1200.0, 799.038144), (873.15, 0.0, 79.1034659)])
+    # Table 8: the Maxwell densities from the host solver, the pressures
+    # and Gibbs energies on the card (the vapor side: well conditioned)
+    sat = [w.sat_solve_T(T) for T in t8[:, 0]]
+    dl = np.array([s[1] for s in sat])
+    dv = np.array([s[2] for s in sat])
+
+    def evaluate(device):
+        def t(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.float64), device=device)
+
+        d7, T7 = t(t7[:, 1] / w.RHOC), t(t7[:, 0])
+        T8 = t(t8[:, 0])
+        return {
+            "p": w.p_dT(d7, T7) / 1e6, "cv": w.cv_dT(d7, T7) / w.MW / 1e3,
+            "s": w.s_dT(d7, T7) / w.MW / 1e3, "w": w.w_dT(d7, T7),
+            "psat": w.p_dT(t(dv), T8) / 1e6,
+            "gsat": (w.g_dT(t(dl), T8) - w.g_dT(t(dv), T8)) / (w.R_MOL * T8),
+            "mu": tr.visc_d(t(visc[:, 1]), t(visc[:, 0])) * 1e6,
+            "k": tr.therm_cond(t(cond[:, 1]), t(cond[:, 0])) * 1e3,
+        }
+
+    card = {k: v.cpu().numpy() for k, v in evaluate(dev).items()}
+    host = {k: v.numpy() for k, v in evaluate(torch.device("cpu")).items()}
+    published = {"p": (t7[:, 2], 1e-7), "cv": (t7[:, 3], 1e-7), "s": (t7[:, 4], 1e-7),
+                 "w": (t7[:, 5], 1e-7), "psat": (t8[:, 1], 1e-7),
+                 "mu": (visc[:, 2], 1e-6), "k": (cond[:, 2], 1e-6)}
+    errs = {k: float(np.max(np.abs(card[k] - v) / np.abs(v))) for k, (v, _) in published.items()}
+    # card vs CPU, each quantity over the scale of its terms: p over
+    # rho R T, the others over their own magnitude (at least 1)
+    rho_rt = t7[:, 1] * w.R_MASS * t7[:, 0] / 1e6
+    scale = {k: np.maximum(np.abs(host[k]), 1.0) for k in host}
+    scale["p"] = rho_rt
+    scale["gsat"] = np.ones_like(host["gsat"])
+    dev_err = {k: float(np.max(np.abs(card[k] - host[k]) / scale[k])) for k in host}
+    print("[iapws] published tables on the card, max rel: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; saturation |g_l - g_v|/RT max {np.abs(card['gsat']).max():.2e}; card vs CPU max "
+          + f"{max(dev_err.values()):.2e} ({max(dev_err, key=dev_err.get)})")
+    for k, (_, tol) in published.items():
+        check(errs[k] <= tol, f"[iapws] {k}: {errs[k]:.3e} from the published table > {tol}")
+    check(np.abs(card["gsat"]).max() <= 1e-9, "[iapws] saturation Gibbs energies differ")
+    check(max(dev_err.values()) <= IAPWS_CARD_RTOL,
+          f"[iapws] card vs CPU {dev_err} > {IAPWS_CARD_RTOL}")
+
+
+def _carry_x0(nlp_old, nlp_new, x_old):
+    """A solved x mapped between compiles with different fixed sets
+    (tests/test_usc_plant.py's helper)."""
+    x_old = x_old.detach().cpu().numpy()
+    x0 = np.array(nlp_new.x0)
+    for name in nlp_new.free_names:
+        if name in nlp_old._slices:
+            a, b, _ = nlp_old._slices[name]
+            lo, hi, _ = nlp_new._slices[name]
+            x0[lo:hi] = x_old[a:b] * nlp_old.var_scale[a:b] / nlp_new.fs.var_specs[name].scale
+    return x0
+
+
+def _usc_solve(torch, dev, tag, m, x0=None, init=None):
+    """(initialize,) compile and solve_square on the card, with walls."""
+    from dispatches_tpu_torch.case_studies.fossil import usc_plant as up
+    from dispatches_tpu_torch.solvers import solve_square
+
+    t0 = time.perf_counter()
+    if init is not None:
+        up.initialize(m, **init)
+    t1 = time.perf_counter()
+    nlp = m.fs.compile()
+    t2 = time.perf_counter()
+    res = solve_square(nlp, x0=x0, device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    print(f"{tag} n {nlp.n}: {int(res.iterations)} Newton iterations, max residual "
+          f"{float(res.max_residual):.3e}, converged {bool(res.converged)}; initialize "
+          f"{t1 - t0:.2f} s, compile {t2 - t1:.2f} s, solve {t3 - t2:.2f} s")
+    check(bool(res.converged), f"{tag} Newton did not converge")
+    return nlp, res, nlp.unravel(res.x)
+
+
+def usc_plant(torch, dev, cut_pressure=False, ipm=True):
+    """[usc], [usc-power], [usc-pressure], [usc-horizon], [usc-ipm] and
+    [usc-trace]: the 437 MW USC plant built, initialized on the host and
+    solved on the card at tests/test_usc_plant.py's anchors."""
+    from dispatches_tpu_torch.case_studies.fossil import usc_plant as up
+    from dispatches_tpu_torch.properties import iapws95 as w95
+    from dispatches_tpu_torch.solvers import make_newton_solver
+
+    m = up.build_plant_model()
+    nlp, res, sol = _usc_solve(torch, dev, "[usc]", m, init={})
+    power = float(sol["plant_power_out"][0])
+    works = sum(float(sol[f"{u}.work_mechanical"][0]) for u in ("booster", "bfp", "bfpt", "cond_pump"))
+    st = w95.flash_hp(sol["turbine_11.outlet.enth_mol"][0], sol["turbine_11.outlet.pressure"][0])
+    anchors = {
+        "plant_power_out": (power, 436.466, 0.01, None),
+        "pump-train work balance": (works, 0.0, 1e4, None),
+        "condenser pressure": (float(sol["condenser.outlet.pressure"][0]), 6895.5, None, 1e-3),
+        "condenser temperature": (float(sol["condenser.outlet.eos.temperature"][0]), 311.87,
+                                  None, 1e-3),
+        "boiler inlet enthalpy": (float(sol["boiler.inlet.enth_mol"][0]), 23737.0, None, 2e-2),
+        "boiler inlet pressure": (float(sol["boiler.inlet.pressure"][0]), 32216913.0, None, 1e-3),
+    }
+    print("[usc] " + ", ".join(f"{k} {v[0]:.6g}" for k, v in anchors.items())
+          + f", turbine 11 exhaust {st['phase']} x {st['x']:.4f}")
+    for k, (got, want, atol, rtol) in anchors.items():
+        tol = atol if atol is not None else rtol * abs(want)
+        check(abs(got - want) <= tol, f"[usc] {k} {got} vs {want}")
+    check(st["phase"] == "two-phase" and 0.9 < st["x"] < 1.0, "[usc] turbine 11 exhaust not wet")
+
+    # [usc-trace]: one warmed Newton solve under the profiler
+    solver = make_newton_solver(nlp, device=dev)
+    params = nlp.default_params()
+    solver(params)
+    torch.cuda.synchronize()
+    tres, _, by_name, total, window = profile_run(torch, lambda: solver(params), "[usc-trace]")
+    iters = int(tres.iterations)
+    if by_name:
+        launches = sum(n for n, _ in by_name.values())
+        print(f"[usc-trace] {launches} device launches over {iters} Newton iterations: "
+              f"{launches / iters:.1f} per iteration, {total / 1e3 / iters:.3f} ms device time "
+              f"per iteration, {window / 1e3 / iters:.3f} ms of window per iteration")
+
+    # [usc-power]: 300 MW, boiler flow free, warm from [usc]
+    fs = m.fs
+    fs.fix("plant_power_out", 300.0)
+    fs.unfix(m["boiler"].inlet_state.flow_mol)
+    nlp2 = fs.compile()
+    _, _, sol2 = _usc_solve(torch, dev, "[usc-power]", m, x0=_carry_x0(nlp, nlp2, res.x))
+    flow = float(sol2["boiler.inlet.flow_mol"][0])
+    print(f"[usc-power] boiler flow at 300 MW: {flow:.4f} mol/s (tests: 12474.473 +- 2)")
+    check(abs(flow - 12474.473) <= 2.0, f"[usc-power] boiler flow {flow}")
+    fs.unfix("plant_power_out")
+    fs.fix(m["boiler"].inlet_state.flow_mol, up.MAIN_FLOW)
+
+    # [usc-pressure]: 27 MPa main steam, re-initialized
+    if cut_pressure:
+        print("[usc-pressure] cut for time")
+    else:
+        fs.fix(m["boiler"].outlet_state.pressure, 27e6)
+        _, _, sol3 = _usc_solve(torch, dev, "[usc-pressure]", m, init={"main_pressure": 27e6})
+        p3, q3 = float(sol3["plant_power_out"][0]), float(sol3["plant_heat_duty"][0])
+        print(f"[usc-pressure] 27 MPa: plant power {p3:.4f} MW (446.15 +- 0.2), heat duty "
+              f"{q3:.4f} MW (940.4 +- 0.5)")
+        check(abs(p3 - 446.15) <= 0.2 and abs(q3 - 940.4) <= 0.5, "[usc-pressure] anchors")
+        fs.fix(m["boiler"].outlet_state.pressure, up.MAIN_STEAM_PRESSURE)
+
+    # [usc-horizon]: four periods, boiler flow fixed per period
+    mh = up.build_plant_model(horizon=4)
+    t0 = time.perf_counter()
+    up.initialize(mh)
+    t_init = time.perf_counter() - t0
+    mh.fs.fix(mh["boiler"].inlet_state.flow_mol, np.asarray(USC_MAIN_FLOW_FRACS) * up.MAIN_FLOW)
+    _, _, solh = _usc_solve(torch, dev, f"[usc-horizon] (initialize {t_init:.2f} s)", mh)
+    ph = np.asarray(solh["plant_power_out"])
+    rel = np.abs(ph - USC_HORIZON_MW) / np.asarray(USC_HORIZON_MW)
+    print(f"[usc-horizon] plant powers {', '.join(f'{v:.8f}' for v in ph)} MW; max rel vs the "
+          f"JAX package's {rel.max():.3e}")
+    check(rel.max() <= USC_RTOL, f"[usc-horizon] powers {rel.max():.3e} > {USC_RTOL}")
+
+    if not ipm:
+        return
+    # [usc-ipm]: the plant through solve_plant on the IPM (what
+    # model_analysis runs), USC_IPM_ITERS iterations on the card and on the
+    # CPU from initialize's start: the iterates agree.  A whole solve does
+    # not converge (status 2 after 100 iterations on an H100: PERF.md)
+    mi = up.build_plant_model()
+    up.initialize(mi)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nlp_i, r = up.solve_plant(mi, device=d, max_iter=USC_IPM_ITERS)
+        torch.cuda.synchronize()
+        runs.append((r, time.perf_counter() - t0))
+    (rc, tc), (rh, th) = runs
+    x_rel = float((rc.x.cpu() - rh.x).abs().max() / rh.x.abs().max())
+    pi = float(nlp_i.unravel(rc.x)["plant_power_out"][0])
+    print(f"[usc-ipm] solve_plant on the IPM, {USC_IPM_ITERS} iterations: card {tc:.1f} s, CPU "
+          f"{th:.1f} s; kkt error card {float(rc.kkt_error):.6e}, CPU {float(rh.kkt_error):.6e}; "
+          f"iterate card vs CPU max rel {x_rel:.3e}; plant power {pi:.6f} MW (Newton {power:.6f})")
+    check(bool(torch.isfinite(rc.x).all()), "[usc-ipm] iterate not finite")
+    check(x_rel <= USC_IPM_RTOL, f"[usc-ipm] card vs CPU iterates {x_rel:.3e} > {USC_IPM_RTOL}")
+
+
+def phase_fossil_serve(torch, dev, main_run, cut_pressure=USC_PRESSURE_CUT):
+    """Phase 9, with the sweep kernels' counts set to 0 before and read
+    after: the serve paths solve through the per-scenario PDLP and the IPM,
+    the fossil path through Newton and the IPM, so neither CUDA sweep is
+    launched."""
+    import tempfile
+
+    from dispatches_tpu_torch.kernels import pdhg_sweep as ks
+
+    ks.avg_sweep.launches = 0
+    ks.halpern_sweep.launches = 0
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="phase9-") as tmp:
+        work = Path(tmp)
+        jr = serve_journal(torch, dev, main_run, work)
+        serve_crash(torch, dev, main_run, jr, work)
+        serve_snapshot(torch, dev, main_run, jr)
+        serve_traffic(torch, dev, main_run)
+    phase_iapws_card(torch, dev)
+    usc_plant(torch, dev, cut_pressure=cut_pressure)
+    print(f"[phase9] {time.perf_counter() - t0:.1f} s; sweep kernel launches during it: "
+          f"halpern {ks.halpern_sweep.launches}, avg {ks.avg_sweep.launches}")
+    check(ks.halpern_sweep.launches == 0 and ks.avg_sweep.launches == 0,
+          "[phase9] a serve or fossil path launched a sweep kernel")
+
+
 def main():
     import torch
 
@@ -2471,8 +3048,11 @@ def main():
         fail("dispatches_tpu_torch/ is not beside chip_smoke.py")
     sys.path.insert(0, str(ROOT))
 
+    if sys.argv[1:2] == [CRASH_FLAG]:
+        crash_child(sys.argv[2])  # [crash]'s child: exits with CRASH_RC
     alone = {"7": lambda dev: phase_double_loop(torch, dev),
-             "8": lambda dev: phase_sweep(torch, dev, flagship(torch, dev))}
+             "8": lambda dev: phase_sweep(torch, dev, flagship(torch, dev)),
+             "9": lambda dev: phase_fossil_serve(torch, dev, flagship(torch, dev))}
     if sys.argv[1:2] == ["--only-phase"]:
         # a development run of one phase alone: no kernel build, no result line
         if sys.argv[2:] not in [[n] for n in alone]:
@@ -2495,6 +3075,7 @@ def main():
     phase_hydrogen(torch, dev, pem)
     phase_double_loop(torch, dev)
     phase_sweep(torch, dev, main_run)
+    phase_fossil_serve(torch, dev, main_run)
 
     replaces = {"halpern": "dispatches_tpu/solvers/pdlp_batch.py:196",
                 "avg": "dispatches_tpu/solvers/pdlp_batch.py:80"}

@@ -19,7 +19,9 @@ builders, ``detect_time_structure``, ``make_structured_kkt``,
 ``TrainNNSurrogates`` (``predict`` too), ``_train_mlp`` and ``mlp_apply``
 given numpy, ``kmeans_fit``, ``kmeans_fit_softdtw``,
 ``RavenARMAROM.train_from_artifact``, ``ARMAModel.sample``,
-``generate_syn_realizations`` and the cash-flow functions given numpy) run on ``cuda`` unless the caller
+``generate_syn_realizations``, the cash-flow functions given numpy,
+``solve_square``, ``make_newton_solver``, ``solve_plant`` and
+``model_analysis``) run on ``cuda`` unless the caller
 passes ``device="cpu"``;
 with no card and no ``device=`` they raise instead of carrying on quietly
 on the CPU.
@@ -44,7 +46,11 @@ study (``case_studies/nuclear``); and the design-space sweep engine with
 its result store, CLI and sweep->surrogate handoff (``sweep/``), the
 market-surrogate workflow (``workflow/``: clustering with soft-DTW, the
 surrogate MLPs and the six shipped surrogates, ``SimulationData``,
-``ManagedWorkflow``), cash flows and synthetic histories (``utils/``).
+``ManagedWorkflow``), cash flows and synthetic histories (``utils/``); and
+serve durability (``serve/journal.py``, ``serve/snapshot.py``,
+``serve/traffic.py``) with the fossil base: IAPWS-95 and its transport
+properties, the liquid salts, the square-system Newton solver, the
+steam-cycle units and the USC plant (``case_studies/fossil``).
 """
 
 import torch

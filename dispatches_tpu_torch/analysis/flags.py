@@ -42,9 +42,13 @@ REGISTERED_FLAGS = {
     "SERVE_HOLD_MAX_MS": "solve-service adaptive batch forming: cap on "
     "how long a slack-rich bucket may hold past SERVE_MAX_WAIT_MS "
     "(serve.ServeOptions.from_env; default 4x SERVE_MAX_WAIT_MS)",
-    "SERVE_JOURNAL_DIR": "arms the write-ahead request journal in the "
-    "JAX package; not ported yet, so a set value makes SolveService "
-    "raise NotImplementedError (serve.service)",
+    "SERVE_JOURNAL_DIR": "arm the solve-service write-ahead request "
+    "journal + learned-state snapshots in this directory; a service "
+    "built with recover_dir= resubmits every request that was open at "
+    "death (serve.journal; unset = no durability, zero overhead)",
+    "SERVE_SNAPSHOT_INTERVAL_S": "seconds between periodic learned-"
+    "state snapshots when the journal is armed (serve.snapshot; "
+    "default 30)",
     "PLAN_INFLIGHT": "execution-plan dispatch-ahead window: max batches "
     "dispatched but not yet fenced (plan.PlanOptions.from_env; default 2)",
     "PLAN_DEVICES": "execution-plan device count; > 1 needs the mesh, "

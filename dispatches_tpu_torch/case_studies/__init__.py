@@ -1,2 +1,3 @@
 """Case studies of the port: renewables (wind, battery, PEM, hydrogen;
-the price-takers and the double loop) and nuclear."""
+the price-takers and the double loop), nuclear, and the fossil USC
+plant."""

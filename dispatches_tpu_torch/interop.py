@@ -11,7 +11,9 @@ host, so moving them across is a matter of types and devices:
 * :func:`ipm_start_from_numpy` turns a JAX ``IPMResult``'s ``x_phys`` and
   ``lam`` into the port's IPM ``x0`` / ``lam0``;
 * :func:`predictor_from_numpy` turns a JAX ``StartPredictor``'s numpy
-  params into the port's ``learn.predictor.forward`` weights.
+  params into the port's ``learn.predictor.forward`` weights;
+* :func:`x_from_numpy` carries a JAX ``CompiledNLP``'s decision vector
+  into the port's, after checking that the two layouts are equal.
 
 Neither imports JAX: callers pass numpy arrays (``np.asarray`` of a JAX
 array is one).
@@ -53,3 +55,23 @@ def predictor_from_numpy(params, device):
     predictor weights: float32 tensors on ``device``, same keys."""
     return {k: torch.tensor(np.array(v, dtype=np.float32), device=device)
             for k, v in params.items()}
+
+
+def x_from_numpy(x, source_nlp, nlp, device):
+    """A decision vector of ``source_nlp`` (a JAX ``CompiledNLP``: scaled,
+    as its ``x0`` and a solver's ``x``) as ``nlp``'s, float64 on
+    ``device``.  The two layouts must be equal — the same free variables in
+    the same order, slices and scales — and then the vector carries over
+    unchanged; a different layout raises ``ValueError``."""
+    if list(source_nlp.free_names) != list(nlp.free_names):
+        raise ValueError("the two NLPs have different free variables")
+    if {k: tuple(v[:2]) for k, v in source_nlp._slices.items()} != \
+            {k: tuple(v[:2]) for k, v in nlp._slices.items()}:
+        raise ValueError("the two NLPs slice their decision vectors differently")
+    if not np.array_equal(np.asarray(source_nlp.var_scale), nlp.var_scale):
+        raise ValueError("the two NLPs scale their variables differently")
+    x = np.array(x, dtype=np.float64)
+    if x.shape != (nlp.n,):
+        raise ValueError(f"x has shape {x.shape}, the NLP has n = {nlp.n}")
+    return torch.tensor(x, device=device)
+

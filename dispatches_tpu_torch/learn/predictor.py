@@ -28,7 +28,7 @@ Flags (registered in ``analysis.flags``):
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -131,3 +131,17 @@ class StartPredictor:
             np.tanh(vn @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
         y = out * p["out_scale"] + p["out_mean"]
         return y[: self.n].copy(), y[self.n:].copy()
+
+    def to_state(self) -> dict:
+        return {
+            "n": self.n,
+            "m": self.m,
+            "params": {k: np.asarray(v) for k, v in self.params.items()},
+        }
+
+    @classmethod
+    def from_state(cls, state: Optional[dict]) -> Optional["StartPredictor"]:
+        if state is None:
+            return None
+        params = {k: np.asarray(v, np.float32) for k, v in state["params"].items()}
+        return cls(params, int(state["n"]), int(state["m"]))

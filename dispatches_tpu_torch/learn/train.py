@@ -261,3 +261,26 @@ class OnlineTrainer:
             )
         self.predictor = predictor
         self.trained_samples = int(trained_samples)
+
+    def to_state(self) -> dict:
+        """Weights and counters; the replay buffer is transient by design
+        (a restored service re-accumulates fresh results)."""
+        return {
+            "n": self.n,
+            "m": self.m,
+            "hidden": self.hidden,
+            "refit_every": self.refit_every,
+            "samples": self.samples,
+            "trained_samples": self.trained_samples,
+            "refits": self.refits,
+            "predictor": None if self.predictor is None
+            else self.predictor.to_state(),
+        }
+
+    def load_state(self, state: dict) -> None:
+        self.samples = int(state.get("samples", 0))
+        self.trained_samples = int(state.get("trained_samples", 0))
+        self.refits = int(state.get("refits", 0))
+        pred = StartPredictor.from_state(state.get("predictor"))
+        if pred is not None and (pred.n, pred.m) == (self.n, self.m):
+            self.predictor = pred

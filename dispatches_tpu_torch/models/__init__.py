@@ -1,8 +1,9 @@
 """Unit models of the port (counterpart of ``dispatches_tpu.models``):
 the wind, PV, battery, splitter, PEM electrolyzer, simple and detailed
-hydrogen tanks, translator, mixer and hydrogen turbine.  The fossil
-models (``heat_exchanger_tube.py``, ``concrete_tes.py``, ...) wait for
-the fossil slice."""
+hydrogen tanks, translator, mixer and hydrogen turbine, and the
+IAPWS-95 steam-cycle units (``steam_cycle``).  The other fossil models
+(``salt_hx.py``, ``heat_exchanger_tube.py``, ``concrete_tes.py``) wait
+for the next fossil slices."""
 
 from dispatches_tpu_torch.models.base import StateBundle
 from dispatches_tpu_torch.models.battery import BatteryStorage

@@ -50,11 +50,23 @@ graceful-degradation ladder, each rung counted (``serve.degrade`` /
 ``serve.shed``): predictor → k-NN, warm → cold, bf16 → f32 twin bucket,
 and load shedding (``RequestStatus.SHED``).
 
-Not ported yet, and raising ``NotImplementedError`` when asked for: the
-write-ahead journal and snapshots (``journal_dir``, ``recover_dir``,
-``snapshot_interval_s``, ``DISPATCHES_TPU_SERVE_JOURNAL_DIR``;
-``ROADMAP.md`` queue 1, item 8), a device mesh (item 7), and continuous
-export, the flight recorder and cost cards (``DISPATCHES_TPU_OBS_EXPORT_DIR``,
+Durability
+----------
+``journal_dir`` (or ``DISPATCHES_TPU_SERVE_JOURNAL_DIR``) arms the
+write-ahead request journal (``serve/journal.py``) and the periodic
+learned-state snapshots (``serve/snapshot.py``) in one directory: every
+accepted request is journaled before its handle can complete, with
+status records as it moves on.  ``recover_dir`` rebuilds a service from a
+predecessor's directory: the snapshot restores the warm-start caches,
+admission estimators, predictors and degradation rungs, and the
+journal's open requests are resubmitted (once each, through the ``orig``
+re-accept link) via ``recover_nlp``/``recover_base_solver`` into
+``recovered_handles``.  ``drain()`` writes a final snapshot and the
+clean-shutdown marker.  Disarmed, the service holds no journal object.
+
+Not ported yet, and raising ``NotImplementedError`` when asked for: a
+device mesh (``ROADMAP.md`` item 7), and continuous export, the flight
+recorder and cost cards (``DISPATCHES_TPU_OBS_EXPORT_DIR``,
 ``DISPATCHES_TPU_OBS_FLIGHT_DIR``, ``DISPATCHES_TPU_OBS_PROFILE``; item 12).
 """
 
@@ -79,6 +91,8 @@ from dispatches_tpu_torch.obs import registry as obs_registry
 from dispatches_tpu_torch.obs import trace as obs_trace
 from dispatches_tpu_torch.plan import ExecutionPlan, PlanOptions
 from dispatches_tpu_torch.serve import admission, warmstart
+from dispatches_tpu_torch.serve import journal as journal_mod
+from dispatches_tpu_torch.serve import snapshot as snapshot_mod
 from dispatches_tpu_torch.serve.bucket import (
     freeze_options,
     params_signature,
@@ -442,19 +456,9 @@ class _Bucket:
         return self.program.compiles
 
 
-def _check_not_deferred(journal_dir, recover_dir, recover_nlp,
-                        recover_base_solver, snapshot_interval_s) -> None:
+def _check_not_deferred() -> None:
     """The service options whose modules are not ported raise instead of
     doing nothing."""
-    if (journal_dir is not None or recover_dir is not None
-            or recover_nlp is not None or recover_base_solver is not None
-            or snapshot_interval_s is not None
-            or os.environ.get(flag_name("SERVE_JOURNAL_DIR"), "")):
-        raise NotImplementedError(
-            "the write-ahead request journal and learned-state snapshots "
-            "(journal_dir, recover_dir, snapshot_interval_s, "
-            "DISPATCHES_TPU_SERVE_JOURNAL_DIR) are not ported yet "
-            "(ROADMAP.md queue 1, item 8: serve/journal.py, serve/snapshot.py)")
     for flag, what in (("OBS_EXPORT_DIR", "continuous telemetry export (obs/export.py)"),
                        ("OBS_FLIGHT_DIR", "the flight recorder (obs/flight.py)"),
                        ("OBS_PROFILE", "cost cards (obs/profile.py)")):
@@ -471,8 +475,18 @@ class SolveService:
     drive the max-wait / deadline policy deterministically.  ``device``
     (``cuda`` unless given) is where the service's own plan stages
     batches; a caller-owned plan (``ServeOptions.plan``) carries its
-    own device.  The durability arguments are the JAX package's; they
-    raise ``NotImplementedError`` until the journal is ported."""
+    own device.
+
+    Durability: ``journal_dir`` (or ``DISPATCHES_TPU_SERVE_JOURNAL_DIR``)
+    arms the write-ahead journal and the snapshot writer (every
+    ``snapshot_interval_s`` on the service clock; default
+    ``DISPATCHES_TPU_SERVE_SNAPSHOT_INTERVAL_S`` or 30 s) in one
+    directory.  ``recover_dir`` restores a predecessor's snapshot and
+    resubmits its journal's open requests through ``recover_nlp`` and
+    ``recover_base_solver`` (a callable, as ``submit``'s ``base_solver``),
+    landing them in ``recovered_handles`` with counts in ``recovery``; a
+    recovering service journals into that directory unless given
+    another."""
 
     def __init__(self, options: Optional[ServeOptions] = None, *,
                  clock: Callable[[], float] = time.monotonic,
@@ -481,8 +495,7 @@ class SolveService:
                  recover_dir: Optional[str] = None,
                  recover_nlp=None, recover_base_solver=None,
                  snapshot_interval_s: Optional[float] = None):
-        _check_not_deferred(journal_dir, recover_dir, recover_nlp,
-                            recover_base_solver, snapshot_interval_s)
+        _check_not_deferred()
         self.options = options if options is not None else ServeOptions.from_env()
         self._clock = clock
         if self.options.plan is not None:
@@ -552,6 +565,75 @@ class SolveService:
             "serve.queue_depth", "solve-service pending requests across "
             "all buckets")
         self._obs_queue_depth.set(0.0)
+        # durability: write-ahead journal + learned-state snapshots share
+        # one directory; disarmed, the hot paths pay one `is None` branch
+        self.generation = 1
+        self._restored_buckets: Dict[str, Dict] = {}
+        self.recovered_handles: List[SolveHandle] = []
+        self.recovery: Optional[Dict] = None
+        # while recovering, the journal id each resubmission supersedes
+        self._resubmit_origin: Optional[int] = None
+        self._journal = None
+        self._snapshots = None
+        durable_dir = journal_dir
+        if durable_dir is None and journal_mod.enabled():
+            durable_dir = journal_mod.default_dir()
+        if durable_dir is None and recover_dir is not None:
+            # recovering implies staying durable, in the same directory
+            durable_dir = recover_dir
+        replayed = None
+        t0_recover = 0.0
+        if recover_dir is not None:
+            t0_recover = time.perf_counter()
+            state = snapshot_mod.load_state(recover_dir)
+            if state is not None:
+                snapshot_mod.apply_to_service(self, state)
+            replayed = journal_mod.replay(recover_dir)
+            if replayed.max_id:
+                # ids stay unique across generations sharing the directory
+                self._request_seq = itertools.count(replayed.max_id + 1)
+        if durable_dir is not None:
+            if snapshot_interval_s is None:
+                raw = os.environ.get(flag_name("SERVE_SNAPSHOT_INTERVAL_S"), "")
+                snapshot_interval_s = (float(raw) if raw
+                                       else snapshot_mod.DEFAULT_INTERVAL_S)
+            self._journal = journal_mod.RequestJournal(durable_dir)
+            self._snapshots = snapshot_mod.SnapshotWriter(
+                durable_dir, interval_s=float(snapshot_interval_s))
+        if replayed is not None:
+            self._resubmit(replayed, recover_nlp, recover_base_solver, t0_recover)
+
+    def _resubmit(self, replayed, nlp, base_solver, t0: float) -> None:
+        """Constructor-time recovery: resubmit every request the journal
+        says was QUEUED or DISPATCHED at death.  Deadlines restart their
+        relative budget (the original instant lived on a dead process's
+        clock)."""
+        recovered = 0
+        lost = replayed.lost
+        for rec in replayed.open_requests:
+            if nlp is None:
+                lost += 1
+                continue
+            try:
+                self._resubmit_origin = rec.get("id")
+                handle = self.submit(
+                    nlp, rec["params"], solver=rec["solver"],
+                    options=rec["options"], deadline_ms=rec["deadline_ms"],
+                    base_solver=base_solver)
+            except Exception:
+                lost += 1
+                continue
+            finally:
+                self._resubmit_origin = None
+            self.recovered_handles.append(handle)
+            recovered += 1
+        self.recovery = {
+            "recovered": recovered,
+            "lost": lost,
+            "clean_shutdown": replayed.clean_shutdown,
+            "torn_records": replayed.torn,
+            "recovery_ms": (time.perf_counter() - t0) * 1e3,
+        }
 
     # -- bucket resolution -------------------------------------------------
 
@@ -582,12 +664,23 @@ class SolveService:
             bucket.rebuild = (nlp, solver, dict(opts), warm)
             # double-checked insert: two first-submit threads can both
             # miss and build; the loser's twin is discarded unseen
+            inserted = False
             with self._lock:
                 raced = self._buckets.get(key)
                 if raced is not None and raced.nlp is nlp:
                     bucket = raced
                 else:
                     self._buckets[key] = bucket
+                    inserted = True
+            if inserted:
+                # recovery: learned state a snapshot stashed under this
+                # label (the one bucket identity that survives a process)
+                restored = self._restored_buckets.pop(label, None)
+                if restored is not None:
+                    try:
+                        snapshot_mod.apply_bucket_state(bucket, restored)
+                    except Exception:
+                        pass  # a stale snapshot must never block serving
         # degradation rung 2 leaves a redirect on the original bucket
         while bucket.redirect is not None:
             bucket = bucket.redirect
@@ -686,6 +779,14 @@ class SolveService:
                 else:
                     self._warm_misses += 1
                     handle.start = bucket.warm_cold_start
+        if self._journal is not None:
+            # write-ahead: the accept record must be durable before the
+            # handle enters the queue, where a concurrent flush could
+            # complete it
+            self._journal.accept(
+                handle.request_id, request_fingerprint(params),
+                solver=solver, options=options, deadline_ms=deadline_ms,
+                t=now, params=params, origin=self._resubmit_origin)
         with self._lock:
             bucket.pending.append(handle)
             bucket.stats.record_submitted()
@@ -756,6 +857,11 @@ class SolveService:
         for bucket in self._buckets_by_slack(now):
             while bucket.pending and now >= self._close_due_at(bucket, now):
                 n += self._flush_bucket(bucket)
+        if self._snapshots is not None:
+            try:
+                self._snapshots.maybe_snapshot(self, now)
+            except Exception:
+                pass  # a full disk must not take serving down with it
         # online predictor refit — the one expensive learn call, at most
         # one per refit_every completed results per bucket
         for bucket in list(self._buckets.values()):
@@ -879,8 +985,10 @@ class SolveService:
         tracing = obs_trace.enabled()
         label = bucket.stats.label
         live: List[SolveHandle] = []
+        timed_out: List[int] = []
         for r in requests:
             if r.deadline_at is not None and now >= r.deadline_at:
+                timed_out.append(r.request_id)
                 r._complete(ServeResult(
                     RequestStatus.TIMEOUT, None, None,
                     (now - r.submitted_at) * 1e3))
@@ -897,6 +1005,8 @@ class SolveService:
                         bucket=label, status=RequestStatus.TIMEOUT)
             else:
                 live.append(r)
+        if self._journal is not None and timed_out:
+            self._journal.status(timed_out, RequestStatus.TIMEOUT)
         if not live:
             return n, None
         dispatch_us = obs_trace.now_us() if tracing else 0.0
@@ -954,6 +1064,8 @@ class SolveService:
             args_s, _ = _stage_subset(sub, lanes)
             return args_s, lanes, [r.request_id for r in sub]
 
+        if self._journal is not None:
+            self._journal.status([r.request_id for r in live], "DISPATCHED")
         faults_armed = _faults.armed()
         try:
             if faults_armed:
@@ -988,6 +1100,8 @@ class SolveService:
                         end: float, tracing: bool) -> None:
         latency = (end - r.submitted_at) * 1e3
         r._complete(ServeResult(RequestStatus.ERROR, None, None, latency))
+        if self._journal is not None:
+            self._journal.status([r.request_id], RequestStatus.ERROR)
         bucket.stats.record_error()
         self._errors += 1
         self._obs_error.inc()
@@ -1072,12 +1186,14 @@ class SolveService:
             if refined_arr is not None:
                 refined = _np(refined_arr).reshape(-1)
         n_done = 0
+        done_ids: List[int] = []
         for i, r in enumerate(live):
             if i in guilty:
                 # its slot in `res` is NaN filler: fail exactly this one
                 self._complete_error(bucket, r, end, tracing)
                 continue
             n_done += 1
+            done_ids.append(r.request_id)
             lane = tree_map(lambda a, _i=i: a[_i], res)
             latency = (end - r.submitted_at) * 1e3
             r._complete(ServeResult(
@@ -1118,6 +1234,8 @@ class SolveService:
             if warm:
                 self._warm_feedback(bucket, r, i, kinds, iters_arr, conv,
                                     objs, xs_h, zs_h)
+        if self._journal is not None and done_ids:
+            self._journal.status(done_ids, RequestStatus.DONE)
         self._obs_solved.inc(n_done)
 
     def _warm_feedback(self, bucket: _Bucket, r: SolveHandle, i: int, kinds,
@@ -1159,13 +1277,24 @@ class SolveService:
     # -- lifecycle ---------------------------------------------------------
 
     def drain(self) -> Dict:
-        """Graceful shutdown: stop intake and drain every pending request.
-        Returns ``{"handled", "snapshot"}`` (no snapshot: the writer is
-        not ported); a second ``drain`` is a no-op."""
+        """Graceful shutdown: stop intake, drain every pending request,
+        write a final snapshot, and journal the clean-shutdown marker — a
+        recovery from this directory then finds nothing open.  Returns
+        ``{"handled", "snapshot"}``; a second ``drain`` is a no-op."""
         if self._draining:
             return {"handled": 0, "snapshot": None}
         self._draining = True
-        return {"handled": self.flush_all(), "snapshot": None}
+        handled = self.flush_all()
+        snapshot_path = None
+        if self._snapshots is not None:
+            try:
+                snapshot_path = self._snapshots.snapshot(self)
+            except Exception:
+                snapshot_path = None
+        if self._journal is not None:
+            self._journal.shutdown(clean=True)
+            self._journal.close()
+        return {"handled": handled, "snapshot": snapshot_path}
 
     # -- telemetry ---------------------------------------------------------
 
@@ -1205,8 +1334,13 @@ class SolveService:
                               if self._submitted else 0.0),
             },
             "warm_start": self._warm_start_metrics(),
-            "durability": {"journaled": False, "snapshot_writes": 0,
-                           "generation": 1, "recovery": None},
+            "durability": {
+                "journaled": self._journal is not None,
+                "snapshot_writes": (0 if self._snapshots is None
+                                    else self._snapshots.writes),
+                "generation": self.generation,
+                "recovery": self.recovery,
+            },
             "buckets": buckets,
             "cost_cards": {},
         }

@@ -175,6 +175,53 @@ class WarmStartIndex:
         return [(self._cursor + i) % self.capacity
                 for i in range(self.capacity)]
 
+    def to_state(self) -> dict:
+        """Serialize to a plain dict of numpy arrays and scalars, entries
+        in insertion order (oldest first), so serialize → restore →
+        serialize is byte-identical wherever the ring's cursor sat, and a
+        restored index answers :meth:`nearest` bitwise-identically."""
+        order = self._logical_order()
+        return {
+            "capacity": self.capacity,
+            "k": self.k,
+            "radius": self.radius,
+            "scale": None if self._scale is None else
+                np.array(self._scale, np.float64),
+            "vecs": None if self._vecs is None else
+                np.array(self._vecs[order], np.float64),
+            "keys": [self._keys[s] for s in order],
+            "xs": [np.asarray(self._sols[s][0]) for s in order],
+            "zs": [np.asarray(self._sols[s][1]) for s in order],
+        }
+
+    @classmethod
+    def from_state(cls, state: dict) -> "WarmStartIndex":
+        """Rebuild an index from :meth:`to_state` output: entries land in
+        slots 0..count-1 with the cursor after the newest, so the logical
+        ring equals the source's."""
+        idx = cls(capacity=int(state["capacity"]), k=int(state["k"]),
+                  radius=float(state["radius"]))
+        vecs = state.get("vecs")
+        if vecs is None:
+            return idx
+        vecs = np.asarray(vecs, np.float64)
+        count = vecs.shape[0]
+        idx._vecs = np.zeros((idx.capacity, vecs.shape[1]), np.float64)
+        idx._vecs[:count] = vecs
+        idx._scale = np.asarray(state["scale"], np.float64)
+        for slot in range(count):
+            key = state["keys"][slot]
+            if isinstance(key, list):
+                key = tuple(key)
+            idx._sols[slot] = (np.asarray(state["xs"][slot]),
+                               np.asarray(state["zs"][slot]))
+            idx._keys[slot] = key
+            if key is not None:
+                idx._slot_of[key] = slot
+        idx._count = count
+        idx._cursor = count % idx.capacity
+        return idx
+
     def export_pairs(self) -> Tuple[list, list, list]:
         """Training triples ``(vecs, xs, zs)`` in deterministic logical
         order (oldest insertion first, post-eviction), for fitting the

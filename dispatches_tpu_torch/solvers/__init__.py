@@ -1,6 +1,6 @@
-"""Solvers of the port: the interior-point NLP solver, the per-scenario
-and batch PDLP LP solvers, and the solver factory.  The Newton and
-reduced-space solvers are not ported yet."""
+"""Solvers of the port: the interior-point NLP solver, the square-system
+Newton solver, the per-scenario and batch PDLP LP solvers, and the solver
+factory.  The reduced-space solver is not ported yet."""
 
 from dispatches_tpu_torch.solvers.ipm import (
     IPMOptions,
@@ -8,6 +8,12 @@ from dispatches_tpu_torch.solvers.ipm import (
     format_iteration_trace,
     make_ipm_solver,
     solve_nlp,
+)
+from dispatches_tpu_torch.solvers.newton import (
+    NewtonOptions,
+    NewtonResult,
+    make_newton_solver,
+    solve_square,
 )
 from dispatches_tpu_torch.solvers.pdlp import (
     PDLP_PRECISIONS,
@@ -34,6 +40,8 @@ __all__ = [
     "IPMOptions",
     "IPMResult",
     "LPResult",
+    "NewtonOptions",
+    "NewtonResult",
     "PDLP_PRECISIONS",
     "PDLPOptions",
     "START_COLD",
@@ -44,10 +52,12 @@ __all__ = [
     "format_iteration_trace",
     "make_ipm_solver",
     "make_lp_data",
+    "make_newton_solver",
     "make_pdlp_batch_solver",
     "make_pdlp_solver",
     "resolve_pdlp_algorithm",
     "resolve_pdlp_precision",
     "resolve_pdlp_refine_rounds",
     "solve_nlp",
+    "solve_square",
 ]

@@ -6,7 +6,7 @@ solver per (nlp, options) (the second solve is a cache hit), a stale
 and ``cbc`` agree on an LP and with the JAX factory (objectives within
 1e-6), ``cbc`` on a non-affine model falls back to the IPM, the tee lines
 carry the JAX package's fields, and ``serve`` routes to the solve
-service while the service's unported parts (the journal) are refused."""
+service while the service's unported parts (a device mesh) are refused."""
 
 import gc
 import re
@@ -120,8 +120,10 @@ def test_serve_is_not_ported():
         assert SolverFactory("serve", device=CPU).service.plan.device.type == "cpu"
     finally:
         set_default_service(prev)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        SolveService(device=CPU, journal_dir="unused")
+    from dispatches_tpu_torch.serve import ServeOptions
+
+    with pytest.raises(NotImplementedError, match="item 7"):
+        SolveService(ServeOptions(mesh=object()), device=CPU)
 
 
 def test_register_solver():

@@ -17,8 +17,8 @@ policy and the latency telemetry are deterministic):
   ``ExecutionPlan.run_inline``) degrading one rung at a time, the
   predictor kill switch bitwise equal to retrieval only, poisoned-lane
   isolation, ``SolverFactory("serve", device="cpu")``, the CLI with
-  ``--device cpu``, the device rule, and every deferred option raising
-  ``NotImplementedError``."""
+  ``--device cpu``, the device rule, the durability options accepted,
+  and every deferred option raising ``NotImplementedError``."""
 
 import os
 from typing import NamedTuple
@@ -381,13 +381,13 @@ def test_device_rule_and_deferred_options_raise(monkeypatch, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             SolveService()
-    for kw in ({"journal_dir": str(tmp_path)}, {"recover_dir": str(tmp_path)},
+    # the durability options are ported (tests/test_torch_durability.py)
+    for kw in ({"journal_dir": str(tmp_path / "j")}, {"recover_dir": str(tmp_path / "r")},
                {"snapshot_interval_s": 1.0}):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            SolveService(device=CPU, **kw)
-    monkeypatch.setenv("DISPATCHES_TPU_SERVE_JOURNAL_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="journal"):
-        SolveService(device=CPU)
+        svc = SolveService(device=CPU, **kw)
+        assert svc.metrics()["durability"]["journaled"] == ("snapshot_interval_s" not in kw)
+    monkeypatch.setenv("DISPATCHES_TPU_SERVE_JOURNAL_DIR", str(tmp_path / "env"))
+    assert SolveService(device=CPU).metrics()["durability"]["journaled"]
     monkeypatch.delenv("DISPATCHES_TPU_SERVE_JOURNAL_DIR")
     with pytest.raises(NotImplementedError, match="item 7"):
         SolveService(ServeOptions(mesh=object()), device=CPU)

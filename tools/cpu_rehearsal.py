@@ -7,6 +7,8 @@ the operations their solver iterations dispatch.
     python3 tools/cpu_rehearsal.py ops7 [--buses 73]
     python3 tools/cpu_rehearsal.py phase7 [--buses 5]
     python3 tools/cpu_rehearsal.py phase8 [--ops-only]
+    python3 tools/cpu_rehearsal.py ops9
+    python3 tools/cpu_rehearsal.py phase9 [serve] [iapws] [usc] [ipm]
 
 ``ops`` counts the aten operations that one Newton iteration of the IPM
 dispatches (the difference between ``max_iter=3`` and ``max_iter=1``,
@@ -32,6 +34,13 @@ interval of a 128-lane chunk of the sweep's points (the difference between
 (``iters=3`` against ``iters=1``); then, unless ``--ops-only``, it runs
 phase 8 on the CPU at the card's sizes (732 points, chunks of 128) and
 prints the phase's own lines, seconds per chunk among them.
+
+``ops9`` counts the operations of one Newton iteration of the USC plant
+(n 678).  ``phase9`` runs phase 9's parts on the CPU: ``serve`` ([journal], [crash]
+with its child process on the CPU, [snapshot], [traffic]), ``iapws`` (the
+card-vs-CPU comparison degenerates to CPU vs CPU), ``usc`` (the Newton
+solves, [usc-pressure] and [usc-horizon] included) and ``ipm``
+([usc-ipm], minutes on the CPU).
 """
 
 from __future__ import annotations
@@ -257,6 +266,57 @@ def phase8():
     print(f"{len(failed)} check(s) failed")
 
 
+def count_ops9():
+    """Operations of one USC Newton iteration (max_iter 2 against 1 from
+    initialize's x0; both solves take their full steps)."""
+    from dispatches_tpu_torch.case_studies.fossil import usc_plant as up
+    from dispatches_tpu_torch.solvers import NewtonOptions, make_newton_solver
+
+    m = up.build_plant_model()
+    up.initialize(m)
+    nlp = m.fs.compile()
+    params = nlp.default_params()
+    counts = {}
+    for it in (1, 2):
+        solver = make_newton_solver(nlp, NewtonOptions(max_iter=it), device=CPU)
+        mode = _OpCount()
+        with mode:
+            solver(params)
+        counts[it] = mode.n
+    print(f"usc newton (n {nlp.n}): {counts[2] - counts[1]} operations per iteration, "
+          f"{counts[1]} for the first with the set-up")
+
+
+def phase9(parts):
+    import tempfile
+
+    _stub_cuda()
+    torch.set_num_threads(2)  # small tensors: more threads only contend
+    failed = []
+
+    def check(cond, msg):
+        if not cond:
+            print(f"check failed: {msg}")
+            failed.append(msg)
+
+    cs.check = check
+    cs.profile_run = lambda torch_, run, tag: (run(), None, {}, 0.0, 0.0)
+    cs.CRASH_CMD = [sys.executable, str(Path(__file__).resolve()), "crash-child"]
+    if "serve" in parts:
+        run = cs.flagship(torch, CPU)
+        with tempfile.TemporaryDirectory() as tmp:
+            work = Path(tmp)
+            jr = cs.serve_journal(torch, CPU, run, work)
+            cs.serve_crash(torch, CPU, run, jr, work)
+            cs.serve_snapshot(torch, CPU, run, jr)
+            cs.serve_traffic(torch, CPU, run)
+    if "iapws" in parts:
+        cs.phase_iapws_card(torch, CPU)
+    if "usc" in parts:
+        cs.usc_plant(torch, CPU, ipm="ipm" in parts)
+    print(f"{len(failed)} check(s) failed")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -272,8 +332,22 @@ def main(argv=None):
     p8 = sub.add_parser("phase8", help="chip_smoke.py phase 8 on the CPU")
     p8.add_argument("--ops-only", action="store_true",
                     help="only count operations per PDLP check and IRR step")
+    p9 = sub.add_parser("phase9", help="chip_smoke.py phase 9 on the CPU")
+    p9.add_argument("parts", nargs="*", default=["serve", "iapws", "usc"],
+                    choices=["serve", "iapws", "usc", "ipm"])
+    sub.add_parser("ops9", help="operations per USC Newton iteration")
+    cc = sub.add_parser("crash-child", help="phase 9's [crash] child, on the CPU")
+    cc.add_argument("dir")
     args = ap.parse_args(argv)
-    if args.cmd == "phase8":
+    if args.cmd in ("crash-child", "ops9"):
+        torch.set_num_threads(2)
+    if args.cmd == "ops9":
+        count_ops9()
+    elif args.cmd == "crash-child":
+        cs.crash_child(args.dir, device="cpu")
+    elif args.cmd == "phase9":
+        phase9(args.parts)
+    elif args.cmd == "phase8":
         count_ops8()
         if not args.ops_only:
             phase8()
