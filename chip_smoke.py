@@ -2,7 +2,10 @@
 """Smoke test of the PyTorch/CUDA port (``dispatches_tpu_torch``) on one
 NVIDIA GPU.  Run from the repository root: ``python3 chip_smoke.py``.
 
-Phases (any failure exits nonzero; nothing is caught and passed over):
+Phases (any failure exits nonzero; nothing is caught and passed over).
+Phases 1-3 run alone; then phases 6, 7 and 10 (split in two) run in child
+processes of this script beside phases 4, 5, 8 and 9 (``CHILD_GROUPS``),
+each child's output echoed when it ends:
 
 1. device: print the card's name and power limit (nvidia-smi), build the
    PDHG sweep kernels from ``dispatches_tpu_torch/csrc`` with nvcc;
@@ -26,8 +29,7 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    ``[entry]`` ``entry()`` over its 8 LMP lanes, status-0 objectives
    within 1e-6 of HiGHS; ``[ipm]`` the phase-2 model at B = 366,
    max_iter 300, on the structured KKT path (``kkt="auto"``; the dense
-   B = 366 run is cut for phase 7's time), 16 lanes within 1e-6 of HiGHS; ``[ipm-trace]`` one warmed
-   structured B = 366 solve under torch.profiler; ``[pdlp1]`` the
+   B = 366 run is cut for phase 7's time), 16 lanes within 1e-6 of HiGHS; ``[pdlp1]`` the
    per-scenario PDLP solver on 4 scenarios (halpern f32 tol 1e-5; f64
    tol 1e-8 with the polish); ``[factory]`` ``SolverFactory("ipopt")``
    and ``("cbc")`` on a storage LP, and ``cbc``'s IPM fallback on a
@@ -71,9 +73,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    bidder, tracker and dispatch solve converged, every bid curve
    non-decreasing, the output files complete; ``[market]`` its DA LP and
    4 SCED hours within 1e-6 of HiGHS on the same LPs, no load shed;
-   ``[bid-batch]`` 7 bid days as one lane axis equal to 7 sequential
-   solves within 1e-6; ``[dl-trace]`` one warmed market hour under
-   torch.profiler.
+   ``[bid-batch]`` 7 bid days as one lane axis equal
+   to 7 sequential solves within 1e-6; ``[dl-trace]`` one warmed market hour under
+   torch.profiler (``--only-phase 7`` only).
 8. the design-space sweep and the sweep->surrogate workflow (float64
    per-scenario PDLP and plain torch; the sweep kernels' counts are read
    around it): ``[sweep]`` ``run_sweep`` over 366 price profiles x 1 LHS
@@ -119,10 +121,29 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    through ``solve_plant`` on the IPM, 3 iterations on the card and on the
    CPU, their iterates within 1e-6 (a whole IPM solve of this square
    system does not converge, see PERF.md).
+10. the molten-salt storage chain and the fossil double-loop participant
+   (float64 Newton on the card, SciPy trust-constr on the host; the sweep
+   kernels' counts are read around it): ``[salt-hx]`` the charge and
+   discharge HX on one-unit flowsheets, card vs CPU within 1e-10;
+   ``[isp]`` the integrated USC + storage plant (n 792) from the JAX
+   package's checkpoint, square and converged, with
+   tests/test_storage_integrated.py's relations; ``[isp-init]`` the plant
+   from scratch (host sweeps, then Newton), within 1e-6 of ``[isp]``; ``[isp-analysis]`` ``model_analysis``
+   hot_empty at test_main_function's anchors; ``[mp-eval]`` one T = 3
+   batched reduced-space evaluation against single lanes (1e-10), central
+   differences (1e-5) and the CPU (1e-9); ``[mp-trace]`` one warmed
+   evaluation under torch.profiler; ``[usc-bid-track]`` a DA bid and a
+   tracking hour of the USC participant (2 outer iterations each in the
+   whole run, one step from the start, 25 in ``--only-phase 10``), each
+   improving its objective on the start's, the bid schedule moving and
+   the tracked power moving toward the dispatch; ``[mp-usc]`` the T = 3
+   price-taker (``--only-phase 10`` only: its solve outlasts the run).
 
 Phase 3 times every kernel tier at B = 366, 1024 and 4096.
-``--only-phase 7``, ``--only-phase 8`` and ``--only-phase 9`` run one of
-those phases alone, for development (no kernel build, no result line).  The line
+``--only-phase 6``, ``7``, ``8``, ``9`` and ``10`` run one of those phases
+alone, for development (no kernel build, no result line; ``7`` with
+``[dl-trace]``, ``10`` with ``[mp-usc]`` and ``[usc-bid-track]`` at full
+depth, or with only the parts named after it: ``--only-phase 10 mp-usc``).  The line
 before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -191,11 +212,15 @@ def phase_device_info(torch):
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    full_precision(torch)
+    return card
+
+
+def full_precision(torch):
     # full-precision products everywhere (the KKT checks, the plain
     # sweeps): TF32 would floor PDLP's accuracy
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return card
 
 
 def phase_device(torch):
@@ -739,7 +764,7 @@ def phase_entry(torch, dev):
 
 def phase_ipm(torch, dev, main_run):
     """The phase-2 model at B = 366, max_iter 300, on the structured KKT
-    path; returns the solver and its params for the trace."""
+    path."""
     from dispatches_tpu_torch.solvers import IPMOptions, make_ipm_solver
 
     nlp, lmps, cfs = main_run["nlp"], main_run["lmps"], main_run["cfs"]
@@ -748,7 +773,6 @@ def phase_ipm(torch, dev, main_run):
     params = {"p": {**d["p"], "lmp": torch.as_tensor(lmps * 1e-3, device=dev),
                     "windpower.capacity_factor": torch.as_tensor(cfs, device=dev)},
               "fixed": d["fixed"]}
-    out = None
     # the dense-KKT B = 366 run (14.4 s in PR 5) is cut to make room for
     # phase 7; the dense path still runs in [entry], [hybrid-dense] and
     # every dispatch LP of phase 7
@@ -762,7 +786,7 @@ def phase_ipm(torch, dev, main_run):
         dt = time.perf_counter() - t0
         obj = res.obj.cpu().numpy()
         check(obj.shape == (B,) and np.all(np.isfinite(obj)), f"[ipm] {kkt}: objectives not finite")
-        st, it, line = _lanes_line(res)
+        st, _, line = _lanes_line(res)
         err = np.abs(obj[:N_HIGHS] - main_run["ref"]) / np.maximum(np.abs(main_run["ref"]), 1.0)
         gap = np.abs(obj - main_run["pdlp_obj"]) / np.maximum(np.abs(obj), 1.0)
         print(f"[ipm] kkt={kkt:6s} B={B} {line} solve {dt * 1e3:.1f} ms "
@@ -771,23 +795,6 @@ def phase_ipm(torch, dev, main_run):
               f"max_gap_to_batch_pdlp {gap.max():.3e}")
         check(err.max() <= IPM_RTOL, f"[ipm] {kkt}: objective error {err.max():.3e} > {IPM_RTOL} "
                                      f"(statuses {st[:N_HIGHS].tolist()})")
-        if kkt == "auto":
-            out = solver, params, int(it.max())
-    return out
-
-
-def phase_ipm_trace(torch, solver, params, max_iters):
-    """One warmed structured B = 366 solve under torch.profiler: idle share,
-    device launches per Newton iteration (all launches of the solve over
-    the slowest lane's iterations, which the batch runs), top ten."""
-    res, _, by_name, total, window = profile_run(
-        torch, lambda: solver(params), f"[ipm-trace] structured B={params['p']['lmp'].shape[0]}")
-    check(bool(torch.isfinite(res.obj).all()), "[ipm-trace] objectives not finite")
-    if by_name:
-        launches = sum(n for n, _ in by_name.values())
-        print(f"[ipm-trace] {launches} device launches over {max_iters} Newton iterations: "
-              f"{launches / max_iters:.1f} per iteration, {total / 1e3 / max_iters:.3f} ms "
-              "device time per iteration")
 
 
 def phase_pdlp1(torch, dev, main_run):
@@ -905,8 +912,7 @@ def phase_ipm_path(torch, dev, main_run):
     ks.halpern_sweep.launches = 0
     t0 = time.perf_counter()
     entry_run = phase_entry(torch, dev)
-    solver, params, max_iters = phase_ipm(torch, dev, main_run)
-    phase_ipm_trace(torch, solver, params, max_iters)
+    phase_ipm(torch, dev, main_run)
     phase_pdlp1(torch, dev, main_run)
     phase_factory(torch, dev)
     phase_optimize(torch, dev)
@@ -1783,7 +1789,7 @@ def highs_lp(torch, nlp, p, label, device):
 DL_BUSES, DL_BRANCHES, DL_THERMAL, DL_RENEWABLE, DL_SEED = 73, 120, 73, 81, 7
 DL_OBJ_RTOL = 1e-6      # [market] LP objectives vs HiGHS
 BID_RTOL = 1e-6         # [bid-batch] day batch vs sequential bids
-N_BID_DAYS = 7
+N_BID_DAYS = 7          # [bid-batch]: a week of bid days
 
 
 # [ne] runs at LMP 500 only: LMP 5's stiff cold start (600 iterations,
@@ -2048,9 +2054,9 @@ def market_checks(torch, dev, rec, case):
 
 
 def bid_batch(torch, dev, case):
-    """[bid-batch]: ``compute_day_ahead_bids_batch`` over 7 days as one lane
-    axis against 7 calls of ``compute_day_ahead_bids`` on the same
-    capacity-factor windows, with a fixed (state-neutral) forecaster."""
+    """[bid-batch]: ``compute_day_ahead_bids_batch`` over N_BID_DAYS days as
+    one lane axis against as many calls of ``compute_day_ahead_bids`` on the
+    same capacity-factor windows, with a fixed (state-neutral) forecaster."""
     from dispatches_tpu_torch.case_studies.renewables.wind_battery_double_loop import (
         MultiPeriodWindBattery,
     )
@@ -2101,7 +2107,8 @@ def bid_batch(torch, dev, case):
 
 def dl_trace(torch, rec):
     """[dl-trace]: one warmed market hour (RT bids, SCED, tracking and a
-    projection solve) under torch.profiler."""
+    projection solve) under torch.profiler (``--only-phase 7``; cut from
+    the whole run for phase 10's time)."""
     sim = rec.sim
     coord, case, lp = sim.coordinator, sim.case, sim._rt_lp
     hr, Hs = 12, sim.sced_horizon
@@ -2134,10 +2141,11 @@ def dl_trace(torch, rec):
               f"{launches / max(sum(its), 1):.1f} per iteration")
 
 
-def phase_double_loop(torch, dev):
+def phase_double_loop(torch, dev, only=False):
     """Phase 7, with the sweep kernels' counts set to 0 before and read
     after: the double loop and the nuclear case run on the float64 IPM
-    and launch neither sweep."""
+    and launch neither sweep.  ``only`` (``--only-phase 7``) runs
+    ``[dl-trace]`` too."""
     import tempfile
 
     from dispatches_tpu_torch.kernels import pdhg_sweep as ks
@@ -2151,7 +2159,10 @@ def phase_double_loop(torch, dev):
         rec, case = double_loop(torch, dev, Path(tmp))
         market_checks(torch, dev, rec, case)
         bid_batch(torch, dev, case)
-        dl_trace(torch, rec)
+        if only:
+            dl_trace(torch, rec)
+        else:
+            print("[dl-trace] cut from the whole run for time (--only-phase 7 runs it)")
     print(f"[phase7] {time.perf_counter() - t0:.1f} s; sweep kernel launches during it: "
           f"halpern {ks.halpern_sweep.launches}, avg {ks.avg_sweep.launches}")
     check(ks.halpern_sweep.launches == 0 and ks.avg_sweep.launches == 0,
@@ -3039,6 +3050,532 @@ def phase_fossil_serve(torch, dev, main_run, cut_pressure=USC_PRESSURE_CUT):
           "[phase9] a serve or fossil path launched a sweep kernel")
 
 
+# ---------------------------------------------------------------------
+# phase 10: the molten-salt storage chain (salt HX, the lane-batched
+# Newton, the reduced-space solver, the integrated plant, the multiperiod
+# price-taker) and the fossil double-loop participant
+# ---------------------------------------------------------------------
+
+STORAGE_DATA = ROOT / "tests" / "data"
+STORAGE_INIT = STORAGE_DATA / "integrated_storage_usc_init"        # JAX's checkpoint
+STORAGE_SOLUTION = STORAGE_DATA / "integrated_storage_usc_solution"  # JAX's hot_empty solution
+SALT_HX_RTOL = 1e-10        # [salt-hx]: card vs CPU, relative to max(1, |x|)
+ISP_RTOL = 1e-6             # [isp]: test_initialized_state's relations
+ISP_INIT_RTOL = 1e-6        # [isp-init]: x vs [isp]'s, relative to max(1, |x|)
+# [mp-eval], [mp-usc] and [usc-bid-track] start at storage_multiperiod's
+# FEASIBLE_DECISIONS: the hour-plant has no inner solution at its default
+# decisions (ROADMAP.md §3)
+MP_LMP = (22.0, 0.0, 200.0)
+MP_BOILER_FRACS = (1.0, 0.97, 0.94)   # [mp-eval]: per-hour boiler flows x design
+MP_EVAL_RTOL = 1e-10        # [mp-eval]: a lane vs its single-lane evaluation
+MP_FD_H, MP_FD_RTOL = 1e-3, 1e-5      # [mp-eval]: dfU vs central differences
+MP_CARD_RTOL = 1e-9         # [mp-eval]: card vs CPU
+MP_USC_ITERS = 60           # [mp-usc]: test_multiperiod_solve_small's maxiter
+BID_TRACK_ITERS = 25        # [usc-bid-track]: test_usc_bid_and_track_solves' maxiter
+# ... and in the whole run, for time: one outer step per solve after the
+# start's evaluation (PERF.md)
+BID_TRACK_WHOLE_ITERS = 2
+BID_TRACK_MOVE_MW = 0.1     # [usc-bid-track]: the least move of a schedule that counts
+
+
+def _wall(torch):
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def _xrel(a, b):
+    a = a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+    b = b.detach().cpu().numpy() if hasattr(b, "detach") else np.asarray(b)
+    return float(np.max(np.abs(a - b) / np.maximum(1.0, np.abs(b))))
+
+
+def salt_hx_units(torch, dev):
+    """[salt-hx]: the charge and discharge HX on one-unit flowsheets
+    (fixed inlets and area, ``_hx_sweep``'s warm start), solved by Newton
+    on the card and on the CPU."""
+    from dispatches_tpu_torch.case_studies.fossil import storage_integrated as isp
+    from dispatches_tpu_torch.core.graph import Flowsheet
+    from dispatches_tpu_torch.models.salt_hx import SaltSteamHX
+    from dispatches_tpu_torch.solvers import solve_square
+
+    for case, (side, w_in, w_out, steam, F_salt, T_in, area) in isp.HX_UNIT_CASES.items():
+        fs = Flowsheet(horizon=1)
+        hx = SaltSteamHX(fs, "hx", salt_side=side, water_in_phase=w_in, water_out_phase=w_out)
+        for var, val in ((hx.water_in.flow_mol, steam["F"]), (hx.water_in.enth_mol, steam["h"]),
+                         (hx.water_in.pressure, steam["P"]), (hx.salt_in.flow_mass, F_salt),
+                         (hx.salt_in.temperature, T_in), (hx.salt_in.pressure, 101325.0),
+                         (hx.area, area)):
+            fs.fix(var, val)
+        isp._hx_sweep(fs, hx, dict(steam), F_salt, T_in, area, water_hot=side == "tube")
+        nlp = fs.compile()
+        t0 = _wall(torch)
+        rc = solve_square(nlp, device=dev)
+        t1 = _wall(torch)
+        rh = solve_square(nlp, device="cpu")
+        sol = nlp.unravel(rc.x)
+        q_w = float(sol[hx.heat_duty][0])
+        gap = _xrel(rc.x.cpu(), rh.x)
+        print(f"[salt-hx] {case} (n {nlp.n}): {int(rc.iterations)} Newton iterations on the card "
+              f"({t1 - t0:.2f} s), {int(rh.iterations)} on the CPU; salt out "
+              f"{float(sol[hx.salt_out.temperature][0]):.4f} K, duty {q_w / 1e6:.4f} MW; "
+              f"card vs CPU {gap:.3e}")
+        check(bool(rc.converged) and bool(rh.converged), f"[salt-hx] {case}: Newton did not converge")
+        check(int(rc.iterations) == int(rh.iterations), f"[salt-hx] {case}: iterations differ")
+        check(gap <= SALT_HX_RTOL, f"[salt-hx] {case}: card vs CPU {gap:.3e} > {SALT_HX_RTOL}")
+
+
+def isp_square(torch, dev):
+    """[isp]: the integrated plant from JAX's checkpoint, square solve on
+    the card, tests/test_storage_integrated.py's relations."""
+    from dispatches_tpu_torch.case_studies.fossil import storage_integrated as isp
+
+    t0 = _wall(torch)
+    m = isp.main(max_power=436, load_from_file=STORAGE_INIT, device=dev)
+    t1 = _wall(torch)
+    nlp, res = m.init_nlp, m.init_res
+    sol = nlp.unravel(res.x)
+    print(f"[isp] n {nlp.n}: {int(res.iterations)} Newton iterations (the JAX package: 1), max "
+          f"residual {float(res.max_residual):.3e}, converged {bool(res.converged)}; {t1 - t0:.2f} s; "
+          f"plant power {float(sol['plant_power_out'][0]):.6f} MW, net "
+          f"{float(sol['net_power'][0]):.6f} MW")
+    check(nlp.n == 792, f"[isp] n {nlp.n}, not 792")
+    check(bool(res.converged) and float(res.max_residual) < 1e-7, "[isp] square solve")
+    f_rh1 = float(sol["reheater_1.outlet.flow_mol"][0])
+    rel = {
+        "hxc steam = 0.1 x reheater 1": abs(float(sol["hxc.shell_inlet.flow_mol"][0]) - 0.1 * f_rh1)
+        / (0.1 * f_rh1),
+        "makeup = es turbine outflow": abs(float(sol["condenser_mix.makeup.flow_mol"][0])
+                                           - float(sol["es_turbine.outlet.flow_mol"][0]))
+        / abs(float(sol["es_turbine.outlet.flow_mol"][0])),
+    }
+    for k, v in rel.items():
+        check(v <= ISP_RTOL, f"[isp] {k}: {v:.3e}")
+    check(float(sol["es_turbine.work_mechanical"][0]) < -1e6, "[isp] es turbine does not generate")
+    check(float(sol["hx_pump.work_mechanical"][0]) > 0.0, "[isp] hx pump does not consume")
+    check(float(sol["coal_heat_duty"][0]) > float(sol["plant_heat_duty"][0]),
+          "[isp] coal duty not above the plant's heat duty")
+    return m
+
+
+def isp_init(torch, dev, ref):
+    """[isp-init]: the integrated plant from scratch: the USC plant's host
+    initialize, the storage train's host sweep, then Newton on the card."""
+    from dispatches_tpu_torch.case_studies.fossil import storage_integrated as isp
+
+    t0 = _wall(torch)
+    m = isp.main(max_power=436, device=dev)
+    t1 = _wall(torch)
+    res = m.init_res
+    gap = _xrel(res.x, ref.init_res.x)
+    print(f"[isp-init] {int(res.iterations)} Newton iterations to {float(res.max_residual):.3e}; "
+          f"build, host initialization and solve {t1 - t0:.2f} s; x vs [isp]'s {gap:.3e}")
+    check(bool(res.converged), "[isp-init] did not converge")
+    check(gap <= ISP_INIT_RTOL, f"[isp-init] x {gap:.3e} from [isp]'s > {ISP_INIT_RTOL}")
+
+
+def isp_analysis(torch, dev, m):
+    """[isp-analysis]: model_analysis hot_empty warm-started from
+    HOT_EMPTY_WARM_U and JAX's solution file, at test_main_function's
+    anchors."""
+    from dispatches_tpu_torch.case_studies.fossil import storage_integrated as isp
+    from dispatches_tpu_torch.utils.checkpoint import load_state
+
+    t0 = _wall(torch)
+    out = isp.model_analysis(m, power=460, max_power=436, tank_scenario="hot_empty",
+                             fix_power=False, maxiter=150, warm_start=isp.HOT_EMPTY_WARM_U,
+                             load_solution=STORAGE_SOLUTION, device=dev)
+    t1 = _wall(torch)
+    res, sol = out["res"], out["sol"]
+    evals = out["rs"].last_evaluations
+    print(f"[isp-analysis] converged {res.converged} ({res.message}); {res.outer_iterations} outer "
+          f"iterations, {evals} evaluations, {res.inner_failures} inner failures, {t1 - t0:.1f} s "
+          f"({(t1 - t0) / max(evals, 1):.2f} s per evaluation)")
+    anchors = {
+        "revenue": (out["revenue"], 9649.22, 1e-1),
+        "objective": (out["obj"], 5.386, 1e-1),
+        "hxd area": (out["hxd_area"], 2204.88, 0.5),
+        "plant power": (float(sol["plant_power_out"][0]), 436.0, 1e-2),
+        "hxd salt flow": (float(sol["hxd.shell_inlet.flow_mass"][0]), 75000.0 / 3600.0,
+                          1e-3 * 75000.0 / 3600.0),
+        "salt inventory": (out["salt_inventory_hot"] + out["salt_inventory_cold"],
+                           isp.SALT_AMOUNT, 1e-9 * isp.SALT_AMOUNT),
+    }
+    print("[isp-analysis] " + ", ".join(f"{k} {v[0]:.6f}" for k, v in anchors.items()))
+    check(res.converged, f"[isp-analysis] not converged: {res.message}")
+    for k, (got, want, tol) in anchors.items():
+        check(abs(got - want) <= tol, f"[isp-analysis] {k} {got} vs {want} +- {tol}")
+    saved = load_state(STORAGE_SOLUTION)["inits"]
+    gaps = {k: float(np.max(np.abs(np.asarray(sol[k]) - saved[k]) / np.maximum(1.0, np.abs(saved[k]))))
+            for k in saved if k in sol and np.shape(sol[k]) == np.shape(saved[k])}
+    worst = sorted(gaps.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[isp-analysis] gap to the JAX package's solution file over {len(gaps)} variables, "
+          "relative to max(1, |JAX's|): largest " + ", ".join(
+              f"{k} {v:.3e} (port {np.ravel(sol[k])[0]:.9g}, JAX {np.ravel(saved[k])[0]:.9g})"
+              for k, v in worst))
+
+
+def _single_lane(smp, mp, dev):
+    """A one-hour BatchedReducedSpaceNLP on the multiperiod hour-plant
+    (the per-lane reference of [mp-eval])."""
+    from dispatches_tpu_torch.solvers.reduced import BatchedReducedSpaceNLP
+
+    return BatchedReducedSpaceNLP(
+        mp.nlp, list(smp.DECISIONS), 1, objective=lambda vb, p: vb["net_power"].sum(),
+        u_scales={d: mp.brs.base._u_layout[d][3] for d in smp.DECISIONS}, device=dev)
+
+
+def mp_eval(torch, dev):
+    """[mp-eval] and [mp-trace]: one batched evaluation of the T = 3
+    multiperiod model against single-lane evaluations, central
+    differences and the CPU; then one warmed evaluation under the
+    profiler."""
+    from dispatches_tpu_torch.case_studies.fossil import storage_multiperiod as smp
+
+    t0 = _wall(torch)
+    mp = smp.MultiPeriodUscModel(n_time_points=3, periodic=True, lmp=np.asarray(MP_LMP),
+                                 load_from_file=STORAGE_INIT, device=dev)
+    brs = mp.brs
+    U = smp.feasible_U(brs, 3, MP_BOILER_FRACS)
+    X0 = np.tile(mp.nlp.x0, (3, 1))
+    rp = brs.runtime_on_device()
+    t1 = _wall(torch)
+    out = brs._evaluate_b(U, X0, rp)
+    t2 = _wall(torch)
+    print(f"[mp-eval] T = 3 (n {mp.nlp.n}, m_u {brs.base.m_u}): build {t1 - t0:.2f} s, one batched "
+          f"evaluation {t2 - t1:.2f} s; Newton iterations {out[11].tolist()}, converged "
+          f"{out[9].tolist()}, max residuals {', '.join(f'{v:.2e}' for v in out[10])}")
+    check(bool(out[9].all()), "[mp-eval] an hour-plant did not converge")
+    one = _single_lane(smp, mp, dev)
+    gaps = {"X": 0.0, "g": 0.0, "dG": 0.0}
+    for t in range(3):
+        o1 = one._evaluate_b(U[t:t + 1], X0[t:t + 1], one.runtime_on_device())
+        check(int(o1[11][0]) == int(out[11][t]), f"[mp-eval] lane {t}: iterations differ")
+        check(bool(o1[9][0]), f"[mp-eval] lane {t}: the single-lane solve did not converge")
+        gaps["X"] = max(gaps["X"], _xrel(out[0][t], o1[0][0]))
+        for k, i in (("g", 2), ("dG", 6)):
+            scale = max(1.0, float(np.max(np.abs(o1[i][0]))))
+            gaps[k] = max(gaps[k], float(np.max(np.abs(out[i][t] - o1[i][0]))) / scale)
+        if t == 0:
+            lane0 = o1
+    print("[mp-eval] lanes vs single-lane evaluations: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + " (X per entry relative to max(1, |x|), g and dG to max(1, max |.|))")
+    check(max(gaps.values()) <= MP_EVAL_RTOL,
+          f"[mp-eval] lanes vs single lanes {gaps} > {MP_EVAL_RTOL}")
+    # the adjoint gradient of the objective against central differences, on
+    # lane 0's boiler flow and BFP split fraction
+    fd_worst = 0.0
+    for d in ("boiler.inlet.flow_mol", "ess_bfp_split.split_fraction_2"):
+        j = brs.base._u_layout[d][0]
+        fs_ = []
+        for sgn in (1.0, -1.0):
+            Up = U.copy()
+            Up[0, j] += sgn * MP_FD_H
+            o = brs._evaluate_b(Up, out[0], rp)
+            check(bool(o[9].all()), f"[mp-eval] {d}: a perturbed solve did not converge")
+            fs_.append(float(o[1]))
+        fd = (fs_[0] - fs_[1]) / (2 * MP_FD_H)
+        err = abs(fd - float(out[5][0, j])) / max(1.0, abs(fd))
+        fd_worst = max(fd_worst, err)
+        print(f"[mp-eval] dfU[0, {d}] adjoint {float(out[5][0, j]):.9f}, central difference "
+              f"{fd:.9f} (h {MP_FD_H}): {err:.3e}")
+    check(fd_worst <= MP_FD_RTOL, f"[mp-eval] adjoint vs central differences {fd_worst:.3e}")
+    # card vs CPU on lane 0's single-lane evaluation
+    cpu = torch.device("cpu")
+    mp_c = smp.MultiPeriodUscModel(n_time_points=3, periodic=True, lmp=np.asarray(MP_LMP),
+                                   load_from_file=STORAGE_INIT, device=cpu)
+    one_c = _single_lane(smp, mp_c, cpu)
+    t3 = time.perf_counter()
+    oc = one_c._evaluate_b(U[:1], X0[:1], one_c.runtime_on_device())
+    t4 = time.perf_counter()
+    cw = max([_xrel(lane0[0], oc[0])]
+             + [float(np.max(np.abs(lane0[i] - oc[i]))) / max(1.0, float(np.max(np.abs(oc[i]))))
+                for i in (2, 5, 6)])
+    print(f"[mp-eval] lane 0 card vs CPU {cw:.3e} (the CPU evaluation {t4 - t3:.2f} s)")
+    check(cw <= MP_CARD_RTOL, f"[mp-eval] card vs CPU {cw:.3e} > {MP_CARD_RTOL}")
+
+    # [mp-trace]: one T = 3 evaluation from the solved states (warmed by
+    # the central differences) under the profiler
+    Xw = out[0]
+    torch.cuda.synchronize()
+    res, _, by_name, total, window = profile_run(torch, lambda: brs._evaluate_b(U, Xw, rp),
+                                                 "[mp-trace]")
+    if by_name:
+        launches = sum(n for n, _ in by_name.values())
+        print(f"[mp-trace] one T = 3 evaluation ({res[11].tolist()} Newton iterations): "
+              f"{launches} device launches, {total / 1e3:.3f} ms device time, "
+              f"{window / 1e3:.3f} ms window")
+    return mp
+
+
+def _record_start(blk):
+    """Wrap the block's batched evaluation so the first one, at the seeded
+    decisions, is kept: ``[objective in the solver's sense, net power per
+    hour]`` of the start."""
+    from dispatches_tpu_torch.case_studies.fossil import storage_multiperiod as smp
+
+    brs = blk.usc_mp.brs
+    evaluate, start = brs._evaluate_b, []
+
+    def first(U, Xw, rp):
+        out = evaluate(U, Xw, rp)
+        if not start:
+            start.extend([-float(out[1]) / smp.OBJ_SCALE,
+                          np.asarray(brs.stack_solution(out[0], U)["net_power"][:, 0])])
+        return out
+
+    brs._evaluate_b = first
+    return start
+
+
+def usc_bid_track(torch, dev, maxiter=BID_TRACK_ITERS):
+    """[usc-bid-track]: tests/test_usc_double_loop.py's
+    test_usc_bid_and_track_solves on the card (blocks seeded at the
+    feasible decisions), ``maxiter`` outer iterations per solve; each
+    solve must also improve its objective on the start's, the bid
+    schedule must move and the tracked power must move toward the
+    dispatch."""
+    from dispatches_tpu_torch.case_studies.fossil import storage_multiperiod as smp
+    from dispatches_tpu_torch.case_studies.fossil.multiperiod_double_loop import (
+        MultiPeriodUsc,
+        UscSelfScheduler,
+        UscTracker,
+    )
+    from dispatches_tpu_torch.grid import ThermalGeneratorModelData
+    from dispatches_tpu_torch.grid.forecaster import Backcaster
+
+    md = ThermalGeneratorModelData(
+        gen_name="1_USC", bus="1", p_min=284.0, p_max=436.0, min_down_time=4, min_up_time=8,
+        ramp_up_60min=60.0, ramp_down_60min=60.0, shutdown_capacity=300.0,
+        startup_capacity=300.0,
+        production_cost_bid_pairs=[(284.0, 22.1), (350.0, 23.5), (436.0, 25.0)])
+    hist = list(22.0 + 3.0 * np.random.default_rng(0).random(24))
+
+    def seed(blk):
+        blk._U = smp.feasible_U(blk.usc_mp.brs, blk.horizon)
+
+    t0 = _wall(torch)
+    bidder = UscSelfScheduler(
+        bidding_model_object=MultiPeriodUsc(md, maxiter=maxiter,
+                                            load_from_file=STORAGE_INIT, device=dev),
+        day_ahead_horizon=2, real_time_horizon=2, n_scenario=1,
+        forecaster=Backcaster({md.bus: hist}, {md.bus: list(hist)}))
+    seed(bidder.day_ahead_model)
+    start = _record_start(bidder.day_ahead_model)
+    bids = bidder.compute_day_ahead_bids(date="2020-07-10")
+    t1 = _wall(torch)
+    out = bidder.day_ahead_model.out
+    r = out["res"]
+    sched = [bids[t][md.gen_name]["p_max"] for t in range(2)]
+    move = float(np.max(np.abs(out["net_power"] - start[1])))
+    print(f"[usc-bid-track] DA bid (H 2, maxiter {maxiter}): {t1 - t0:.1f} s, "
+          f"{r.outer_iterations} outer iterations, "
+          f"{bidder.day_ahead_model.usc_mp.brs.last_evaluations} evaluations, "
+          f"{r.inner_failures} inner failures; objective {start[0]:.4f} at the start, "
+          f"{r.obj:.4f} at the end; net power {', '.join(f'{p:.4f}' for p in start[1])} MW at "
+          f"the start, schedule {', '.join(f'{p:.4f}' for p in sched)} MW")
+    check(all(md.p_min - 1e-6 <= p <= md.p_max + 30.0 + 1e-6 for p in sched),
+          f"[usc-bid-track] bids {sched} outside the envelope")
+    check(r.obj > start[0], f"[usc-bid-track] DA objective {r.obj} not above the start's {start[0]}")
+    check(move >= BID_TRACK_MOVE_MW, f"[usc-bid-track] DA schedule moved {move:.4f} MW")
+    tracker = UscTracker(MultiPeriodUsc(md, maxiter=maxiter, load_from_file=STORAGE_INIT,
+                                        device=dev), tracking_horizon=2)
+    seed(tracker.model)
+    start = _record_start(tracker.model)
+    t2 = _wall(torch)
+    tracker.track_market_dispatch([400.0, 410.0], date="2020-07-10", hour=0)
+    t3 = _wall(torch)
+    p0 = tracker.get_last_delivered_power()
+    r = tracker.model.out["res"]
+    print(f"[usc-bid-track] tracking hour [400, 410]: {t3 - t2:.1f} s, {r.outer_iterations} outer "
+          f"iterations, {tracker.model.usc_mp.brs.last_evaluations} evaluations; objective "
+          f"{start[0]:.4f} at the start, {r.obj:.4f} at the end; delivered {p0:.4f} MW (the "
+          f"start's {start[1][0]:.4f}), carried power {tracker.model.usc_mp.previous_power}")
+    check(r.obj > start[0], f"[usc-bid-track] tracking objective {r.obj} not above the start's "
+          f"{start[0]}")
+    check(abs(p0 - 400.0) <= abs(start[1][0] - 400.0) - BID_TRACK_MOVE_MW,
+          f"[usc-bid-track] delivered {p0:.4f} MW did not move toward 400 from {start[1][0]:.4f}")
+    check(bool(np.isfinite(p0)) and md.p_min - 1e-6 <= p0 <= md.p_max + 30.0,
+          f"[usc-bid-track] delivered {p0}")
+    check(tracker.model.usc_mp.previous_power == round(p0),
+          "[usc-bid-track] the carried state did not advance")
+
+
+def _log_evaluations(torch, brs, tag):
+    """Wrap ``brs``' batched evaluation to print one line per evaluation
+    as it ends (a long solve cut by its time limit still shows how far it
+    got and what each evaluation cost)."""
+    evaluate, t_start = brs._evaluate_b, _wall(torch)
+
+    def logged(U, Xw, rp):
+        t0 = _wall(torch)
+        out = evaluate(U, Xw, rp)
+        t1 = _wall(torch)
+        print(f"{tag} evaluation at {t1 - t_start:.1f} s: {t1 - t0:.2f} s, objective "
+              f"{float(out[1]):.6f}, Newton iterations {out[11].tolist()}, converged "
+              f"{out[9].tolist()}", flush=True)
+        return out
+
+    brs._evaluate_b = logged
+
+
+def mp_usc(torch, dev):
+    """[mp-usc]: tests/test_storage_multiperiod.py's
+    test_multiperiod_solve_small (T = 3, maxiter 60) on the card, from the
+    feasible decisions."""
+    from dispatches_tpu_torch.case_studies.fossil import storage_multiperiod as smp
+
+    t0 = _wall(torch)
+    mp = smp.MultiPeriodUscModel(n_time_points=3, load_from_file=STORAGE_INIT, periodic=True,
+                                 lmp=np.asarray(MP_LMP), device=dev)
+    _log_evaluations(torch, mp.brs, "[mp-usc]")
+    out = mp.solve(U0=smp.feasible_U(mp.brs, 3), maxiter=MP_USC_ITERS)
+    t1 = _wall(torch)
+    res = out["res"]
+    print(f"[mp-usc] T = 3: {t1 - t0:.1f} s, {res.outer_iterations} outer iterations, "
+          f"{mp.brs.last_evaluations} evaluations, {res.inner_failures} inner failures, "
+          f"converged {res.converged} ({res.message}); objective {out['obj']:.4f}, plant power "
+          f"{', '.join(f'{v:.3f}' for v in out['plant_power'])} MW, hot tank "
+          f"{', '.join(f'{v:.1f}' for v in out['hot_tank_level'])} kg")
+    check(float(np.max(res.g_local)) < 1e-4, "[mp-usc] per-hour envelope violated")
+    check(float(np.max(res.g_coupling)) < 1e-4, "[mp-usc] coupling rows violated")
+    check(float(np.max(np.abs(res.eq_coupling))) < 1e-4, "[mp-usc] periodic row violated")
+    check(bool(np.all(out["plant_power"] >= smp.MIN_POWER - 1e-3))
+          and bool(np.all(out["plant_power"] <= smp.MAX_POWER + 1e-3)), "[mp-usc] plant power")
+    check(bool(np.all(out["hxc_duty"] >= 10.0 - 1e-3)) and bool(np.all(out["hxd_duty"] >= 10.0 - 1e-3)),
+          "[mp-usc] a storage train below 10 MW")
+    check(abs(out["hot_tank_level"][-1] - mp.initial_hot_inventory)
+          <= 1e-5 * mp.initial_hot_inventory, "[mp-usc] hot inventory not periodic")
+
+
+STORAGE_PARTS = ("salt-hx", "isp", "isp-init", "isp-analysis", "mp-eval", "usc-bid-track",
+                 "mp-usc")
+
+
+def phase_storage(torch, dev, only=False, parts=STORAGE_PARTS):
+    """Phase 10, with the sweep kernels' counts set to 0 before and read
+    after: the storage chain solves through Newton and SciPy on the host,
+    so neither CUDA sweep is launched.  ``only`` (``--only-phase 10``)
+    runs the part cut from the whole run too, each at full depth;
+    ``parts`` picks some of them (the whole run splits the phase in two
+    child processes, ``CHILD_GROUPS``)."""
+    from dispatches_tpu_torch.kernels import pdhg_sweep as ks
+
+    ks.avg_sweep.launches = 0
+    ks.halpern_sweep.launches = 0
+    t0 = time.perf_counter()
+    if "salt-hx" in parts:
+        salt_hx_units(torch, dev)
+    if {"isp", "isp-init", "isp-analysis"} & set(parts):
+        m = isp_square(torch, dev)
+        if "isp-init" in parts:
+            isp_init(torch, dev, m)
+        if "isp-analysis" in parts:
+            isp_analysis(torch, dev, m)
+    if "mp-eval" in parts:
+        mp_eval(torch, dev)
+    if "usc-bid-track" in parts:
+        usc_bid_track(torch, dev, BID_TRACK_ITERS if only else BID_TRACK_WHOLE_ITERS)
+    if "mp-usc" in parts and not only:
+        print("[mp-usc] cut from the whole run for time (--only-phase 10 runs it; "
+              "[usc-bid-track] drives MultiPeriodUscModel.solve)")
+    elif "mp-usc" in parts:
+        mp_usc(torch, dev)
+    print(f"[phase10] {time.perf_counter() - t0:.1f} s; sweep kernel launches during it: "
+          f"halpern {ks.halpern_sweep.launches}, avg {ks.avg_sweep.launches}")
+    check(ks.halpern_sweep.launches == 0 and ks.avg_sweep.launches == 0,
+          "[phase10] the storage chain launched a sweep kernel")
+
+
+# The whole run drives these groups of phases in child processes (this
+# script with a private flag), started after phase 3's kernel timings and
+# running beside phases 4, 5, 8 and 9 in the main process: every phase
+# after 3 is host-bound (the card idle 91-98% of a traced window,
+# PERF.md §5), so they share the card and the host's cores.  Each child
+# reads its own sweep-kernel counts around its phase.
+CHILD_FLAG = "--phase-child"
+CHILD_GROUPS = (("6",), ("7",), ("10", "salt-hx", "isp", "isp-init", "isp-analysis"),
+                ("10", "mp-eval", "usc-bid-track", "mp-usc"))
+CHILD_THREADS = "2"        # BLAS and torch threads per child (8 host cores in all)
+WHOLE_RUN_S = 1140.0       # the run fails itself past this, inside the 1,200 s limit
+
+
+def whole_run_phase(torch, dev, phase, parts=()):
+    """Phase 6, 7 or 10 (``parts`` of it) at the whole run's depth."""
+    if phase == "6":
+        phase_hydrogen(torch, dev, pem_batch_model(torch, dev))
+    elif phase == "7":
+        phase_double_loop(torch, dev)
+    else:
+        phase_storage(torch, dev, parts=parts)
+
+
+def phase_child(torch, parent, phase, parts):
+    """A child process of the whole run: it dies with its parent
+    (PR_SET_PDEATHSIG), and drives one group of ``CHILD_GROUPS``."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)
+    if os.getppid() != parent:
+        fail(f"[child {phase}] its parent {parent} is gone")
+    full_precision(torch)
+    whole_run_phase(torch, torch.device("cuda"), phase, parts)
+
+
+def start_children():
+    """Start every group of ``CHILD_GROUPS``, its standard output and error
+    into files under build/ (echoed when the child is joined)."""
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONUNBUFFERED="1", OMP_NUM_THREADS=CHILD_THREADS,
+               MKL_NUM_THREADS=CHILD_THREADS, OPENBLAS_NUM_THREADS=CHILD_THREADS)
+    children = []
+    for group in CHILD_GROUPS:
+        out = tempfile.TemporaryFile("w+", dir=ROOT / "build")
+        err = tempfile.TemporaryFile("w+", dir=ROOT / "build")
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), CHILD_FLAG, str(os.getpid()),
+             *group], stdout=out, stderr=err, env=env, cwd=ROOT)
+        children.append((group, proc, out, err, time.perf_counter()))
+    print(f"[children] started {len(children)}: "
+          + "; ".join(" ".join(g) for g in CHILD_GROUPS))
+    return children
+
+
+def join_children(children, t_start):
+    """Wait for each child (until ``WHOLE_RUN_S`` after ``t_start``), echo
+    its output, and fail if one failed or is still running."""
+    for group, proc, out, err, t0 in children:
+        name = " ".join(group)
+        try:
+            rc = proc.wait(timeout=max(1.0, t_start + WHOLE_RUN_S - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            rc = None
+            proc.kill()
+            proc.wait()
+        out.seek(0)
+        sys.stdout.write(out.read())
+        err.seek(0)
+        sys.stderr.write(err.read())
+        sys.stdout.flush()
+        sys.stderr.flush()
+        print(f"[child {name}] exit {rc}; started at {t0 - t_start:.1f} s of the run, joined at "
+              f"{time.perf_counter() - t_start:.1f} s")
+        check(rc is not None, f"[child {name}] still running {WHOLE_RUN_S:.0f} s into the run")
+        check(rc == 0, f"[child {name}] failed (exit {rc})")
+
+
+def stop_children(children):
+    for _, proc, out, err, _ in children:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+        err.close()
+
+
 def main():
     import torch
 
@@ -3050,17 +3587,27 @@ def main():
 
     if sys.argv[1:2] == [CRASH_FLAG]:
         crash_child(sys.argv[2])  # [crash]'s child: exits with CRASH_RC
-    alone = {"7": lambda dev: phase_double_loop(torch, dev),
+    if sys.argv[1:2] == [CHILD_FLAG]:
+        phase_child(torch, int(sys.argv[2]), sys.argv[3], sys.argv[4:])
+        return
+    alone = {"6": lambda dev: whole_run_phase(torch, dev, "6"),
+             "7": lambda dev: phase_double_loop(torch, dev, only=True),
              "8": lambda dev: phase_sweep(torch, dev, flagship(torch, dev)),
-             "9": lambda dev: phase_fossil_serve(torch, dev, flagship(torch, dev))}
+             "9": lambda dev: phase_fossil_serve(torch, dev, flagship(torch, dev)),
+             "10": lambda dev: phase_storage(torch, dev, only=True,
+                                             parts=sys.argv[3:] or STORAGE_PARTS)}
     if sys.argv[1:2] == ["--only-phase"]:
-        # a development run of one phase alone: no kernel build, no result line
-        if sys.argv[2:] not in [[n] for n in alone]:
-            fail(f"--only-phase takes one of {', '.join(alone)}")
+        # a development run of one phase alone: no kernel build, no result
+        # line; phase 10 takes a list of its parts
+        if sys.argv[2:3] not in [[n] for n in alone] or (
+                sys.argv[3:] and (sys.argv[2] != "10" or set(sys.argv[3:]) - set(STORAGE_PARTS))):
+            fail(f"--only-phase takes one of {', '.join(alone)}; 10 also takes parts of "
+                 f"{', '.join(STORAGE_PARTS)}")
         phase_device_info(torch)
         alone[sys.argv[2]](torch.device("cuda"))
         print(f"[only-phase {sys.argv[2]}] done (no result line: not the smoke test's full run)")
         return
+    t_start = time.perf_counter()
     card = phase_device(torch)
     # the main path runs first, so its launch counts start from zero
     # before any comparison launch
@@ -3070,12 +3617,19 @@ def main():
     # phase 3 holds the kernels on its operator, phase 6 solves it
     pem = pem_batch_model(torch, dev)
     report = phase_kernels(torch, main_run["lp"], dev, pem["lp"])
-    entry_run = phase_ipm_path(torch, dev, main_run)
-    phase_serve_path(torch, dev, main_run, entry_run)
-    phase_hydrogen(torch, dev, pem)
-    phase_double_loop(torch, dev)
-    phase_sweep(torch, dev, main_run)
-    phase_fossil_serve(torch, dev, main_run)
+    # phase 3's timings are taken alone on the card; from here on the
+    # children's phases run beside this process's
+    children = start_children()
+    try:
+        entry_run = phase_ipm_path(torch, dev, main_run)
+        phase_serve_path(torch, dev, main_run, entry_run)
+        phase_sweep(torch, dev, main_run)
+        phase_fossil_serve(torch, dev, main_run)
+        print(f"[main] phases 1-5, 8 and 9 done at {time.perf_counter() - t_start:.1f} s")
+        join_children(children, t_start)
+    finally:
+        stop_children(children)
+    print(f"[whole] {time.perf_counter() - t_start:.1f} s")
 
     replaces = {"halpern": "dispatches_tpu/solvers/pdlp_batch.py:196",
                 "avg": "dispatches_tpu/solvers/pdlp_batch.py:80"}

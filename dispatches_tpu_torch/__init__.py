@@ -20,8 +20,11 @@ builders, ``detect_time_structure``, ``make_structured_kkt``,
 given numpy, ``kmeans_fit``, ``kmeans_fit_softdtw``,
 ``RavenARMAROM.train_from_artifact``, ``ARMAModel.sample``,
 ``generate_syn_realizations``, the cash-flow functions given numpy,
-``solve_square``, ``make_newton_solver``, ``solve_plant`` and
-``model_analysis``) run on ``cuda`` unless the caller
+``solve_square``, ``make_newton_solver``, ``make_batched_newton_solver``,
+``solve_plant``, ``model_analysis``, ``ReducedSpaceNLP``,
+``BatchedReducedSpaceNLP``, the storage plant's ``main`` and
+``model_analysis``, ``MultiPeriodUscModel``, ``run_pricetaker_analysis``
+and ``MultiPeriodUsc``) run on ``cuda`` unless the caller
 passes ``device="cpu"``;
 with no card and no ``device=`` they raise instead of carrying on quietly
 on the CPU.
@@ -50,7 +53,12 @@ surrogate MLPs and the six shipped surrogates, ``SimulationData``,
 serve durability (``serve/journal.py``, ``serve/snapshot.py``,
 ``serve/traffic.py``) with the fossil base: IAPWS-95 and its transport
 properties, the liquid salts, the square-system Newton solver, the
-steam-cycle units and the USC plant (``case_studies/fossil``).
+steam-cycle units and the USC plant (``case_studies/fossil``); and the
+molten-salt storage chain: the salt/steam heat exchanger
+(``models/salt_hx.py``), the lane-batched Newton solver, the
+reduced-space solver (``solvers/reduced.py``), the USC plant integrated
+with storage, its multiperiod price-taker and its double-loop participant
+(``case_studies/fossil``).
 """
 
 import torch

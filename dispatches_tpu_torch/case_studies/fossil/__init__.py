@@ -1,10 +1,24 @@
-"""Fossil case study of the port: the ultra-supercritical pulverized-coal
-plant (counterpart of ``dispatches_tpu.case_studies.fossil``; the
-molten-salt storage designs and the multiperiod models come later)."""
+"""Fossil case study of the port (counterpart of
+``dispatches_tpu.case_studies.fossil``): the ultra-supercritical
+pulverized-coal plant (``usc_plant``), the plant integrated with
+molten-salt storage (``storage_integrated``), its multiperiod
+price-taker (``storage_multiperiod``) and its double-loop participant
+(``multiperiod_double_loop``).  The supercritical plant with concrete
+storage and the charge and discharge designs come later."""
 
 from dispatches_tpu_torch.case_studies.fossil.usc_plant import (  # noqa: F401
     build_plant_model,
     initialize,
     model_analysis,
     solve_plant,
+)
+from dispatches_tpu_torch.case_studies.fossil.storage_multiperiod import (  # noqa: F401
+    MultiPeriodUscModel,
+    create_multiperiod_usc_model,
+    run_pricetaker_analysis,
+)
+from dispatches_tpu_torch.case_studies.fossil.multiperiod_double_loop import (  # noqa: F401
+    MultiPeriodUsc,
+    UscSelfScheduler,
+    UscTracker,
 )

@@ -13,7 +13,11 @@ host, so moving them across is a matter of types and devices:
 * :func:`predictor_from_numpy` turns a JAX ``StartPredictor``'s numpy
   params into the port's ``learn.predictor.forward`` weights;
 * :func:`x_from_numpy` carries a JAX ``CompiledNLP``'s decision vector
-  into the port's, after checking that the two layouts are equal.
+  into the port's, after checking that the two layouts are equal;
+* :func:`u_from_numpy` does the same for the scaled decisions of a
+  reduced-space NLP: a ``ReducedSpaceNLP``'s u, or a
+  ``BatchedReducedSpaceNLP``'s (T, m_u) U (a JAX warm start such as a
+  saved ``WARM_U`` or a solved ``U``).
 
 Neither imports JAX: callers pass numpy arrays (``np.asarray`` of a JAX
 array is one).
@@ -75,3 +79,37 @@ def x_from_numpy(x, source_nlp, nlp, device):
         raise ValueError(f"x has shape {x.shape}, the NLP has n = {nlp.n}")
     return torch.tensor(x, device=device)
 
+
+
+def _reduced_layout(rs):
+    base = getattr(rs, "base", rs)
+    return ([str(d) for d in base.decisions],
+            {str(d): (int(a), int(b), tuple(shape), float(scale))
+             for d, (a, b, shape, scale) in base._u_layout.items()},
+            int(base.m_u))
+
+
+def u_from_numpy(u, source_rs, rs, device):
+    """Scaled decisions of ``source_rs`` (a JAX ``ReducedSpaceNLP`` or
+    ``BatchedReducedSpaceNLP``: a u of shape (m_u,), or a U of shape
+    (T, m_u) for a batched one) as ``rs``'s, float64 on ``device``.  The
+    two must have the same decisions in the same order, slices and
+    scales (and, batched, the same T); then the values carry over
+    unchanged, and a different layout raises ``ValueError``."""
+    sd, sl, sm = _reduced_layout(source_rs)
+    dd, dl, dm = _reduced_layout(rs)
+    if sd != dd:
+        raise ValueError("the two reduced-space NLPs have different decisions")
+    for d in dd:
+        if sl[d][:3] != dl[d][:3]:
+            raise ValueError(f"the two reduced-space NLPs slice decision {d!r} differently")
+        if sl[d][3] != dl[d][3]:
+            raise ValueError(f"the two reduced-space NLPs scale decision {d!r} differently")
+    T = getattr(rs, "T", None)
+    if T is not None and getattr(source_rs, "T", None) != T:
+        raise ValueError("the two batched NLPs have different horizons")
+    u = np.array(u, dtype=np.float64)
+    want = (dm,) if T is None else (T, dm)
+    if u.shape != want:
+        raise ValueError(f"u has shape {u.shape}, the reduced-space NLP takes {want}")
+    return torch.tensor(u, device=device)

@@ -1,9 +1,10 @@
 """Unit models of the port (counterpart of ``dispatches_tpu.models``):
 the wind, PV, battery, splitter, PEM electrolyzer, simple and detailed
-hydrogen tanks, translator, mixer and hydrogen turbine, and the
-IAPWS-95 steam-cycle units (``steam_cycle``).  The other fossil models
-(``salt_hx.py``, ``heat_exchanger_tube.py``, ``concrete_tes.py``) wait
-for the next fossil slices."""
+hydrogen tanks, translator, mixer and hydrogen turbine, the IAPWS-95
+steam-cycle units (``steam_cycle``) and the molten-salt / steam heat
+exchanger (``salt_hx``).  The other fossil models
+(``heat_exchanger_tube.py``, ``concrete_tes.py``) wait for the next
+fossil slices."""
 
 from dispatches_tpu_torch.models.base import StateBundle
 from dispatches_tpu_torch.models.battery import BatteryStorage
@@ -13,6 +14,7 @@ from dispatches_tpu_torch.models.hydrogen_tank_simplified import SimpleHydrogenT
 from dispatches_tpu_torch.models.hydrogen_turbine import HydrogenTurbine
 from dispatches_tpu_torch.models.mixer import Mixer
 from dispatches_tpu_torch.models.pem_electrolyzer import PEMElectrolyzer
+from dispatches_tpu_torch.models.salt_hx import HXGeometry, SaltSteamHX
 from dispatches_tpu_torch.models.solar_pv import SolarPV
 from dispatches_tpu_torch.models.translator import Translator
 from dispatches_tpu_torch.models.wind_power import (
@@ -39,4 +41,6 @@ __all__ = [
     "SimpleHydrogenTank",
     "HydrogenTank",
     "HydrogenTurbine",
+    "HXGeometry",
+    "SaltSteamHX",
 ]

@@ -1,6 +1,6 @@
 """Solvers of the port: the interior-point NLP solver, the square-system
-Newton solver, the per-scenario and batch PDLP LP solvers, and the solver
-factory.  The reduced-space solver is not ported yet."""
+Newton solver (with a lane-batched form), the reduced-space solver, the
+per-scenario and batch PDLP LP solvers, and the solver factory."""
 
 from dispatches_tpu_torch.solvers.ipm import (
     IPMOptions,
@@ -12,6 +12,7 @@ from dispatches_tpu_torch.solvers.ipm import (
 from dispatches_tpu_torch.solvers.newton import (
     NewtonOptions,
     NewtonResult,
+    make_batched_newton_solver,
     make_newton_solver,
     solve_square,
 )
@@ -33,10 +34,18 @@ from dispatches_tpu_torch.solvers.pdlp_batch import (
     BatchPDLPOptions,
     make_pdlp_batch_solver,
 )
+from dispatches_tpu_torch.solvers.reduced import (
+    BatchedReducedResult,
+    BatchedReducedSpaceNLP,
+    ReducedResult,
+    ReducedSpaceNLP,
+)
 from dispatches_tpu_torch.solvers.factory import SolverFactory
 
 __all__ = [
     "BatchPDLPOptions",
+    "BatchedReducedResult",
+    "BatchedReducedSpaceNLP",
     "IPMOptions",
     "IPMResult",
     "LPResult",
@@ -44,6 +53,8 @@ __all__ = [
     "NewtonResult",
     "PDLP_PRECISIONS",
     "PDLPOptions",
+    "ReducedResult",
+    "ReducedSpaceNLP",
     "START_COLD",
     "START_EXACT",
     "START_NEIGHBOR",
@@ -51,6 +62,7 @@ __all__ = [
     "SolverFactory",
     "format_iteration_trace",
     "make_ipm_solver",
+    "make_batched_newton_solver",
     "make_lp_data",
     "make_newton_solver",
     "make_pdlp_batch_solver",

@@ -17,6 +17,11 @@ iteration in float64:
 * linear solves by LU (``torch.linalg.solve``), or ``"refined_f32"``: a
   float32 LU with three float64 refinement steps.  ``"auto"`` is LU,
   on the card and on the CPU.
+
+:func:`make_batched_newton_solver` solves T copies of one system at once
+along an explicit lane axis, with the semantics of ``jax.vmap`` of the
+reference's ``while_loop``: every lane runs until it converges or hits
+``max_iter``, and a finished lane is frozen while the others go on.
 """
 
 from __future__ import annotations
@@ -74,6 +79,52 @@ def _linear_solve_lu(J, r):
     return torch.linalg.solve(J, r)
 
 
+def _lanes(fn, *args):
+    """``fn`` over a leading lane axis.  On the card one batched call; on
+    the CPU one call per lane: oneMKL's batched LU (torch 2.13 CPU builds)
+    fails on a few lanes of ~800 x 800 ("Parameter 6 was incorrect on
+    entry to DLASWP") and does not return."""
+    if args[0].device.type != "cpu":
+        return fn(*args)
+    outs = [fn(*(a[t] for a in args)) for t in range(args[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
+def lane_solve(A, B):
+    """``torch.linalg.solve`` over a leading lane axis (see :func:`_lanes`)."""
+    return _lanes(torch.linalg.solve, A, B)
+
+
+def _linear_solve_refined_b(J, r):
+    """Lane-batched ``_linear_solve_refined``: J (T, n, n), r (T, n)."""
+    lu, piv = _lanes(lambda a: torch.linalg.lu_factor_ex(a)[:2], J.to(torch.float32))
+
+    def solve32(b):
+        return _lanes(lambda f, p, c: torch.linalg.lu_solve(f, p, c[..., None])[..., 0],
+                      lu, piv, b.to(torch.float32)).to(F64)
+
+    x = solve32(r)
+    for _ in range(3):
+        x = x + solve32(r - (J @ x[..., None])[..., 0])
+    return x
+
+
+def _linear_solve_lu_b(J, r):
+    # solve_ex: a singular lane gives non-finite entries (caught by the
+    # gradient fallback) instead of an error, and no host read
+    return _lanes(lambda a, b: torch.linalg.solve_ex(a, b)[0], J, r)
+
+
+def _linear_kind(opt: "NewtonOptions") -> str:
+    kind = "lu" if opt.linear_solver == "auto" else opt.linear_solver
+    if kind not in ("lu", "refined_f32"):
+        raise ValueError(f"unknown linear_solver {opt.linear_solver!r}; "
+                         "expected 'auto', 'lu' or 'refined_f32'")
+    return kind
+
+
 def make_newton_solver(nlp, options: Optional[NewtonOptions] = None,
                        trace: bool = False, device=None):
     """Build a square-system Newton solver for a CompiledNLP with no
@@ -97,10 +148,7 @@ def make_newton_solver(nlp, options: Optional[NewtonOptions] = None,
     lb = torch.as_tensor(np.asarray(nlp.lb, dtype=np.float64), device=dev)
     ub = torch.as_tensor(np.asarray(nlp.ub, dtype=np.float64), device=dev)
 
-    kind = "lu" if opt.linear_solver == "auto" else opt.linear_solver
-    if kind not in ("lu", "refined_f32"):
-        raise ValueError(f"unknown linear_solver {opt.linear_solver!r}; "
-                         "expected 'auto', 'lu' or 'refined_f32'")
+    kind = _linear_kind(opt)
     lin = _linear_solve_refined if kind == "refined_f32" else _linear_solve_lu
     # the Armijo fan: alpha_k = backtrack**k, k = 0..max_backtracks
     alphas = torch.tensor([opt.backtrack ** k for k in range(opt.max_backtracks + 1)],
@@ -164,6 +212,85 @@ def make_newton_solver(nlp, options: Optional[NewtonOptions] = None,
         rec = np.full(opt.max_iter, errs[-1] if errs else np.inf)
         rec[:len(errs)] = errs
         return result, {"max_residual": torch.as_tensor(rec, device=dev)}
+
+    return solver
+
+
+def make_batched_newton_solver(nlp, options: Optional[NewtonOptions], lane_axes,
+                               device=None):
+    """The lane-batched counterpart of ``jax.vmap(make_newton_solver(nlp,
+    options), in_axes=(lane_axes, 0))``, on ``device`` (``cuda`` unless
+    given).  Returns ``solver(params, X0) -> NewtonResult`` where ``X0``
+    is (T, n) (scaled, as ``nlp.x0``) and every params leaf whose
+    ``lane_axes`` entry is 0 carries a leading T (``lane_axes`` has the
+    params' tree, 0 or None at each leaf).  The result's ``x`` is (T, n) and
+    ``converged``, ``iterations`` and ``max_residual`` are per lane.
+
+    Each lane runs while its max residual is above ``tol`` and its
+    iteration count below ``max_iter``; a finished lane keeps its x,
+    count and residual.  Each active lane takes the first passing step of
+    its own Armijo fan (the smallest when none passes) and falls back to
+    -J'r when its Newton step is not finite.  The loop reads the device
+    once per step: whether any lane is still active."""
+    opt = options or NewtonOptions()
+    dev = resolve_device(device)
+    p0 = _params_on(nlp.default_params(), dev)
+    n_eq = int(nlp.eq(torch.as_tensor(nlp.x0, dtype=F64, device=dev), p0).shape[-1])
+    if n_eq != nlp.n:
+        raise ValueError(
+            f"square solver needs n_eq == n_var, got {n_eq} != {nlp.n} "
+            "(use the IPM for non-square systems)"
+        )
+    lb = torch.as_tensor(np.asarray(nlp.lb, dtype=np.float64), device=dev)
+    ub = torch.as_tensor(np.asarray(nlp.ub, dtype=np.float64), device=dev)
+    lin = (_linear_solve_refined_b if _linear_kind(opt) == "refined_f32"
+           else _linear_solve_lu_b)
+    alphas = torch.tensor([opt.backtrack ** k for k in range(opt.max_backtracks + 1)],
+                          dtype=F64, device=dev)
+    eye = torch.eye(nlp.n, dtype=F64, device=dev) if opt.reg else None
+
+    def clip(x):
+        return torch.minimum(torch.maximum(x, lb), ub)
+
+    def merit(x, p):
+        r = nlp.eq(x, p)
+        return 0.5 * torch.dot(r, r)
+
+    def solver(params, X0):
+        P = _params_on(params, dev)
+        if not isinstance(X0, torch.Tensor):
+            X0 = np.asarray(X0, dtype=np.float64)
+        X = clip(torch.as_tensor(X0, dtype=F64, device=dev))
+        T = X.shape[0]
+        F = torch.func.vmap(nlp.eq, in_dims=(0, lane_axes))
+        jac = torch.func.vmap(torch.func.jacfwd(nlp.eq), in_dims=(0, lane_axes))
+        merit_fan = torch.func.vmap(torch.func.vmap(merit, in_dims=(0, None)),
+                                    in_dims=(0, lane_axes))
+        it = torch.zeros(T, dtype=torch.int64, device=dev)
+        err = torch.full((T,), float("inf"), dtype=F64, device=dev)
+        active = torch.full((T,), opt.max_iter > 0, device=dev)
+        while bool(active.any()):  # the step's one host read
+            r = F(X, P)
+            J = jac(X, P)
+            if eye is not None:
+                J = J + opt.reg * eye
+            dx = lin(J, -r)
+            g = (J.transpose(-1, -2) @ r[..., None])[..., 0]
+            dx = torch.where(torch.isfinite(dx).all(-1, keepdim=True), dx, -g)
+            m0 = 0.5 * (r * r).sum(-1)
+            g_dx = (g * dx).sum(-1)
+            m_try = merit_fan(clip(X[:, None, :] + alphas[None, :, None] * dx[:, None, :]), P)
+            ok = ~(m_try > m0[:, None] + opt.armijo_c * alphas[None, :] * g_dx[:, None])
+            k = torch.where(ok.any(-1), torch.argmax(ok.to(torch.int8), -1),
+                            torch.full_like(it, opt.max_backtracks))
+            Xn = clip(X + alphas[k][:, None] * dx)
+            nan_guard("newton.iterate", Xn)
+            errn = F(Xn, P).abs().amax(-1)
+            X = torch.where(active[:, None], Xn, X)
+            err = torch.where(active, errn, err)
+            it = it + active.to(it.dtype)
+            active = (err > opt.tol) & (it < opt.max_iter)
+        return NewtonResult(x=X, converged=err <= opt.tol, iterations=it, max_residual=err)
 
     return solver
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Rehearse phases 6, 7 and 8 of ``chip_smoke.py`` on the CPU, and count
+"""Rehearse phases 6 to 10 of ``chip_smoke.py`` on the CPU, and count
 the operations their solver iterations dispatch.
 
     python3 tools/cpu_rehearsal.py ops [--horizon 24]
@@ -9,6 +9,8 @@ the operations their solver iterations dispatch.
     python3 tools/cpu_rehearsal.py phase8 [--ops-only]
     python3 tools/cpu_rehearsal.py ops9
     python3 tools/cpu_rehearsal.py phase9 [serve] [iapws] [usc] [ipm]
+    python3 tools/cpu_rehearsal.py ops10
+    python3 tools/cpu_rehearsal.py phase10 [salt] [isp] [init] [analysis] [mp] [bid] [bid25] [mpusc]
 
 ``ops`` counts the aten operations that one Newton iteration of the IPM
 dispatches (the difference between ``max_iter=3`` and ``max_iter=1``,
@@ -41,6 +43,17 @@ with its child process on the CPU, [snapshot], [traffic]), ``iapws`` (the
 card-vs-CPU comparison degenerates to CPU vs CPU), ``usc`` (the Newton
 solves, [usc-pressure] and [usc-horizon] included) and ``ipm``
 ([usc-ipm], minutes on the CPU).
+
+``ops10`` counts the operations of one reduced-space evaluation of the
+multiperiod hour-plant (n 792) at T = 1 and T = 3, from the converged
+states at phase 10's decisions (the outer loop's warm case: one Newton
+step per lane) and from the checkpoint (the cold case).  ``phase10`` runs
+phase 10's parts on the CPU: ``salt`` ([salt-hx], card vs CPU becomes CPU
+vs CPU), ``isp``, ``init`` ([isp-init]), ``analysis`` ([isp-analysis],
+~6 min), ``mp`` ([mp-eval]; [mp-trace] as a plain call), ``bid``
+([usc-bid-track] at the whole run's depth), ``bid25`` (at 25 outer
+iterations, as ``--only-phase 10``; ~30 min) and ``mpusc`` ([mp-usc], the
+longest).
 """
 
 from __future__ import annotations
@@ -317,6 +330,58 @@ def phase9(parts):
     print(f"{len(failed)} check(s) failed")
 
 
+def count_ops10():
+    """Operations of one reduced-space evaluation of the multiperiod
+    hour-plant at T = 1 and T = 3, warm and cold."""
+    from dispatches_tpu_torch.case_studies.fossil import storage_multiperiod as smp
+
+    mp = smp.MultiPeriodUscModel(n_time_points=3, periodic=True, lmp=np.asarray(cs.MP_LMP),
+                                 load_from_file=cs.STORAGE_INIT, device=CPU)
+    one = cs._single_lane(smp, mp, CPU)
+    for T, brs in ((1, one), (3, mp.brs)):
+        U = smp.feasible_U(brs, T, cs.MP_BOILER_FRACS[:T])
+        X0 = np.tile(mp.nlp.x0, (T, 1))
+        rp = brs.runtime_on_device()
+        cold = brs._evaluate_b(U, X0, rp)
+        for tag, X in (("cold", X0), ("warm", cold[0])):
+            mode = _OpCount()
+            with mode:
+                out = brs._evaluate_b(U, X, rp)
+            print(f"T = {T} {tag} (Newton iterations {out[11].tolist()}): {mode.n} operations "
+                  "per evaluation")
+
+
+def phase10(parts):
+    _stub_cuda()
+    torch.set_num_threads(2)  # small tensors: more threads only contend
+    failed = []
+
+    def check(cond, msg):
+        if not cond:
+            print(f"check failed: {msg}")
+            failed.append(msg)
+
+    cs.check = check
+    cs.profile_run = lambda torch_, run, tag: (run(), None, {}, 0.0, 0.0)
+    if "salt" in parts:
+        cs.salt_hx_units(torch, CPU)
+    if parts & {"isp", "init", "analysis"}:
+        m = cs.isp_square(torch, CPU)
+        if "init" in parts:
+            cs.isp_init(torch, CPU, m)
+        if "analysis" in parts:
+            cs.isp_analysis(torch, CPU, m)
+    if "mp" in parts:
+        cs.mp_eval(torch, CPU)
+    if "bid" in parts:
+        cs.usc_bid_track(torch, CPU, cs.BID_TRACK_WHOLE_ITERS)
+    if "bid25" in parts:
+        cs.usc_bid_track(torch, CPU, cs.BID_TRACK_ITERS)
+    if "mpusc" in parts:
+        cs.mp_usc(torch, CPU)
+    print(f"{len(failed)} check(s) failed")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -336,13 +401,22 @@ def main(argv=None):
     p9.add_argument("parts", nargs="*", default=["serve", "iapws", "usc"],
                     choices=["serve", "iapws", "usc", "ipm"])
     sub.add_parser("ops9", help="operations per USC Newton iteration")
+    p10 = sub.add_parser("phase10", help="chip_smoke.py phase 10 on the CPU")
+    p10.add_argument("parts", nargs="*", default=["salt", "isp", "init", "mp", "bid"],
+                     choices=["salt", "isp", "init", "analysis", "mp", "bid", "bid25",
+                              "mpusc"])
+    sub.add_parser("ops10", help="operations per reduced-space evaluation")
     cc = sub.add_parser("crash-child", help="phase 9's [crash] child, on the CPU")
     cc.add_argument("dir")
     args = ap.parse_args(argv)
-    if args.cmd in ("crash-child", "ops9"):
+    if args.cmd in ("crash-child", "ops9", "ops10"):
         torch.set_num_threads(2)
     if args.cmd == "ops9":
         count_ops9()
+    elif args.cmd == "ops10":
+        count_ops10()
+    elif args.cmd == "phase10":
+        phase10(set(args.parts))
     elif args.cmd == "crash-child":
         cs.crash_child(args.dir, device="cpu")
     elif args.cmd == "phase9":
