@@ -3,9 +3,9 @@
 NVIDIA GPU.  Run from the repository root: ``python3 chip_smoke.py``.
 
 Phases (any failure exits nonzero; nothing is caught and passed over).
-Phases 1-3 run alone; then phases 6, 7 and 10 (split in two) run in child
-processes of this script beside phases 4, 5, 8 and 9 (``CHILD_GROUPS``),
-each child's output echoed when it ends:
+Phases 1-3 run alone; then phases 6, 7, 10 (split in two) and 11 run in
+child processes of this script beside phases 4, 5, 8 and 9
+(``CHILD_GROUPS``), each child's output echoed when it ends:
 
 1. device: print the card's name and power limit (nvidia-smi), build the
    PDHG sweep kernels from ``dispatches_tpu_torch/csrc`` with nvcc;
@@ -138,12 +138,38 @@ each child's output echoed when it ends:
    improving its objective on the start's, the bid schedule moving and
    the tracked power moving toward the dispatch; ``[mp-usc]`` the T = 3
    price-taker (``--only-phase 10`` only: its solve outlasts the run).
+11. the storage design studies and the concrete-TES branch (float64 Newton
+   on the card, SciPy trust-constr on the host; the sweep kernels' counts
+   are read around it): ``[tes]`` the charge, discharge and combined
+   ConcreteTES of tests/test_concrete_tes.py, the reference profiles within
+   1 K, the heat rates within 1 W (combined: 5) of the JAX package's
+   solution (tests/data/concrete_tes_profiles.json), charge energy
+   conservation, card vs CPU within 1e-9; ``[tube]`` the boil-through
+   ConcreteTubeSide at 55,702.16 +- 1 J/mol; ``[scpc]`` the 692 MW
+   supercritical plant without the TES (692 MW at 1%, the JAX package's
+   landed value at 1e-6, the BFP turbine balancing the BFP, the card's x
+   solving the CPU's residual to Newton's tol); ``[scpc-tes]`` the plant with
+   the TES at a 0.1 HP split (625 MW at 1%, JAX's value at 1e-6, the
+   charge flow, charging), then ``unfix_dof_for_optimization``;
+   ``[charge-design]`` the solar-salt / HP design NLP from the JAX
+   package's checkpoint at test_solar_hp_design's anchors (cold at maxiter
+   150 in ``--only-phase 11``; in the whole run warm-started from that
+   solve's decisions, ``CHARGE_WARM_START``); ``[design-trace]`` one warm
+   evaluation of that design under torch.profiler;
+   ``[discharge-design]`` the condenser-pump design NLP at
+   test_condpump_design_anchor's anchors (maxiter 1 in the whole run,
+   150 in ``--only-phase 11``); ``[charge-study]`` and ``[discharge-study]``
+   the full enumerations with ``isolate=True``, each combination's child
+   Python running concurrently (``--only-phase 11`` only), selecting
+   solar/HP and condpump.
 
 Phase 3 times every kernel tier at B = 366, 1024 and 4096.
-``--only-phase 6``, ``7``, ``8``, ``9`` and ``10`` run one of those phases
-alone, for development (no kernel build, no result line; ``7`` with
-``[dl-trace]``, ``10`` with ``[mp-usc]`` and ``[usc-bid-track]`` at full
-depth, or with only the parts named after it: ``--only-phase 10 mp-usc``).  The line
+``--only-phase 6``, ``7``, ``8``, ``9``, ``10`` and ``11`` run one of those
+phases alone, for development (no kernel build, no result line; ``7``
+with ``[dl-trace]``, ``10`` with ``[mp-usc]`` and ``[usc-bid-track]`` at
+full depth, ``11`` with both enumerations; ``10`` and ``11`` also with
+only the parts named after them: ``--only-phase 10 mp-usc``,
+``--only-phase 11 charge-study``).  The line
 before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -3487,6 +3513,366 @@ def phase_storage(torch, dev, only=False, parts=STORAGE_PARTS):
           "[phase10] the storage chain launched a sweep kernel")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the storage design studies and the concrete-TES branch
+# ---------------------------------------------------------------------------
+
+TES_PROFILES = STORAGE_DATA / "concrete_tes_profiles.json"   # reference + JAX's solves
+TES_CARD_RTOL = 1e-9        # [tes]: card vs CPU, relative to max(1, |x|)
+TES_T_ATOL, TES_Q_ATOL, TES_COMBINED_ATOL = 1.0, 1.0, 5.0   # K, W, K and W
+TUBE_H_OUT, TUBE_H_ATOL = 55702.16, 1.0   # [tube]: J/mol, test_solve_regression's
+SCPC_JAX_RTOL = 1e-6        # [scpc], [scpc-tes]: net power vs the JAX package's landed value
+DESIGN_ITERS = 150          # [charge-design], [discharge-design]: the anchor tests' maxiter
+STUDY_ITERS = 120           # [charge-study], [discharge-study]: the JAX enumerations' maxiter
+#: the whole run's design solves stop after this many outer iterations:
+#: a cold design solve at maxiter 150 outlasts the run (888 s and 2,338 s
+#: on the card, PERF.md)
+WHOLE_DESIGN_ITERS = 1
+#: [charge-design] in the whole run starts from the decisions of the cold
+#: maxiter-150 solve (``tools/cpu_rehearsal.py phase11 charge-design``, the
+#: port on the CPU, PERF.md), where that solve's cost was
+#: ``CHARGE_WARM_COST`` $/yr; the card's evaluation there must agree within
+#: ``CHARGE_WARM_RTOL`` (the inner Newton's tolerance, not the arithmetic)
+CHARGE_WARM_START = {"ess_split.split_fraction_2": 0.2101741927487465,
+                     "hxc.tube_inlet.flow_mass": 312.1209108537888,
+                     "cooler.outlet.enth_mol": 20144.116054388563}
+CHARGE_WARM_COST = 90554626.79294053
+CHARGE_WARM_RTOL = 1e-8
+DESIGN_PARTS = ("tes", "tube", "scpc", "scpc-tes", "charge-design", "design-trace",
+                "discharge-design", "charge-study", "discharge-study")
+#: tests/test_concrete_tes.py's model data (the reference test's)
+TES_DATA = {
+    "num_tubes": 10000, "num_segments": 20, "num_time_periods": 2, "tube_length": 64.9,
+    "tube_diameter": 0.0105664, "face_area": 0.00847, "therm_cond_concrete": 1,
+    "dens_mass_concrete": 2240, "cp_mass_concrete": 900,
+    "init_temperature_concrete": [
+        750, 732.631579, 715.2631579, 697.8947368, 680.5263158, 663.1578947, 645.7894737,
+        628.4210526, 611.0526316, 593.6842105, 576.3157895, 558.9473684, 541.5789474,
+        524.2105263, 506.8421053, 489.4736842, 472.1052632, 454.7368421, 437.3684211, 420],
+    "flow_mol_charge": 0.00958 * 1000 / 18.01528, "inlet_pressure_charge": 19600000,
+    "inlet_temperature_charge": 865, "flow_mol_discharge": 3 / 18.01528,
+    "inlet_pressure_discharge": 8.5e5, "inlet_temperature_discharge": 355,
+}
+
+
+def _tes_build(mode, data):
+    """tests/test_concrete_tes.py's unit in ``mode``, initialized on the
+    host: (flowsheet, tes)."""
+    from dispatches_tpu_torch.core.graph import Flowsheet
+    from dispatches_tpu_torch.models.concrete_tes import ConcreteTES
+
+    fs = Flowsheet(horizon=1)
+    tes = ConcreteTES(fs, "tes", data, operating_mode=mode)
+    if mode in ("charge", "combined"):
+        tes.fix_inlet("charge", flow_mol_total=data["flow_mol_charge"] * data["num_tubes"],
+                      temperature=data["inlet_temperature_charge"])
+    if mode in ("discharge", "combined"):
+        tes.fix_inlet("discharge", flow_mol_total=data["flow_mol_discharge"] * data["num_tubes"],
+                      temperature=data["inlet_temperature_discharge"])
+    tes.initialize()
+    return fs, tes
+
+
+def tes_units(torch, dev):
+    """[tes]: the charge, discharge and combined ConcreteTES of
+    tests/test_concrete_tes.py (its model data), solved by Newton on the
+    card and on the CPU; the reference profiles within 1 K, the heat rates
+    within 1 W of the JAX package's solution, the combined unit within 5
+    of it (tests/data/concrete_tes_profiles.json), charge energy
+    conservation, card vs CPU."""
+    from dispatches_tpu_torch.solvers import solve_square
+
+    ref = json.loads(TES_PROFILES.read_text())
+    for mode in ("charge", "discharge", "combined"):
+        fs, tes = _tes_build(mode, TES_DATA)
+        nlp = fs.compile()
+        t0 = _wall(torch)
+        rc = solve_square(nlp, device=dev)
+        t1 = _wall(torch)
+        rh = solve_square(nlp, device="cpu")
+        sol = nlp.unravel(rc.x)
+        gap = _xrel(rc.x.cpu(), rh.x)
+        wall = sol["tes.wall_temperature"][0]
+        heat = sol["tes.heat_rate"][0]
+        jx = ref["jax"][mode]
+        errs = {}
+        if mode == "charge":
+            tf = sol["tes.charge.T_liq"][0] + sol["tes.charge.T_vap"][0] - tes.charge.sat.Tsat
+            errs["wall p1 vs reference (K)"] = (np.abs(wall[0] - ref["reference"]["charge_wall_p1"]),
+                                                TES_T_ATOL)
+            errs["fluid p2 vs reference (K)"] = (np.abs(tf[1] - ref["reference"]["charge_fluid_p2"]),
+                                                 TES_T_ATOL)
+            errs["heat rate vs JAX (W)"] = (np.abs(heat - jx["heat_rate"]), TES_Q_ATOL)
+            q_fluid = sol["tes.charge.segment_heat"][0].sum(axis=-1)
+            cons = float(np.max(np.abs(heat.sum(axis=-1) + q_fluid) / np.abs(q_fluid)))
+            check(cons <= 1e-8, f"[tes] charge energy balance {cons:.3e}")
+        elif mode == "discharge":
+            tf = (sol["tes.discharge.T_liq"][0] + sol["tes.discharge.T_vap"][0]
+                  - tes.discharge.sat.Tsat)
+            errs["wall p1 vs reference (K)"] = (
+                np.abs(wall[0] - ref["reference"]["discharge_wall_p1"]), TES_T_ATOL)
+            errs["fluid p1 vs reference (K)"] = (
+                np.abs(tf[0][::-1] - ref["reference"]["discharge_fluid_p1_segment_order"]),
+                TES_T_ATOL)
+            errs["heat rate vs JAX (W)"] = (np.abs(heat - jx["heat_rate"]), TES_Q_ATOL)
+        else:
+            errs["wall vs JAX (K)"] = (np.abs(wall - jx["wall_temperature"]), TES_COMBINED_ATOL)
+            errs["heat rate vs JAX (W)"] = (np.abs(heat - jx["heat_rate"]), TES_COMBINED_ATOL)
+        print(f"[tes] {mode} (n {nlp.n}): {int(rc.iterations)} Newton iterations on the card "
+              f"({t1 - t0:.2f} s), {int(rh.iterations)} on the CPU; card vs CPU {gap:.3e}; "
+              + ", ".join(f"{k} {float(v.max()):.3e}" for k, (v, _) in errs.items()))
+        check(bool(rc.converged) and bool(rh.converged), f"[tes] {mode}: Newton did not converge")
+        check(gap <= TES_CARD_RTOL, f"[tes] {mode}: card vs CPU {gap:.3e} > {TES_CARD_RTOL}")
+        for k, (v, tol) in errs.items():
+            check(float(v.max()) <= tol, f"[tes] {mode}: {k} {float(v.max()):.3e} > {tol}")
+
+
+def tube_unit(torch, dev):
+    """[tube]: tests/test_heat_exchanger_tube.py's boil-through tube on
+    the card: outlet enthalpy, flow, monotone node enthalpies."""
+    from dispatches_tpu_torch.core.graph import Flowsheet
+    from dispatches_tpu_torch.models import ConcreteTubeSide
+    from dispatches_tpu_torch.properties import iapws95 as w95
+    from dispatches_tpu_torch.solvers import solve_square
+
+    fs = Flowsheet(horizon=1)
+    u = ConcreteTubeSide(fs, "unit", finite_elements=20)
+    for var, val in ((u.d_tube_inner, 0.01167), (u.d_tube_outer, 0.01167),
+                     (u.tube_length, 4.85), (u.htc, 500.0), (u.inlet_state.flow_mol, 1.0),
+                     (u.inlet_state.pressure, 101325.0),
+                     (u.inlet_state.enth_mol, float(w95.props_tp(300.0, 101325.0, "liq")["h"])),
+                     (u.temperature_wall, 1000.0)):
+        fs.fix(var, val)
+    u.initialize()
+    nlp = fs.compile()
+    t0 = _wall(torch)
+    res = solve_square(nlp, device=dev)
+    t1 = _wall(torch)
+    sol = nlp.unravel(res.x)
+    h_out = float(np.ravel(sol["unit.tube_outlet.enth_mol"])[0])
+    flow = float(np.ravel(sol["unit.tube_outlet.flow_mol"])[0])
+    h_nodes = np.ravel(sol["unit.enth_mol"])
+    print(f"[tube] n {nlp.n}: {int(res.iterations)} Newton iterations ({t1 - t0:.2f} s), "
+          f"converged {bool(res.converged)}; outlet {h_out:.4f} J/mol (want {TUBE_H_OUT} +- "
+          f"{TUBE_H_ATOL}), flow {flow:.9f} mol/s")
+    check(bool(res.converged), "[tube] Newton did not converge")
+    check(abs(h_out - TUBE_H_OUT) <= TUBE_H_ATOL, f"[tube] outlet enthalpy {h_out}")
+    check(abs(flow - 1.0) <= 1e-5, f"[tube] outlet flow {flow}")
+    check(bool(np.all(np.diff(h_nodes) > 0)), "[tube] node enthalpies not monotone")
+
+
+def scpc_plants(torch, dev, parts):
+    """[scpc] and [scpc-tes]: the 692 MW supercritical plant without and
+    with the concrete TES (0.1 HP split), host-initialized and solved by
+    Newton on the card, at tests/test_scpc_plant.py's anchors and the JAX
+    package's landed values."""
+    from dispatches_tpu_torch.case_studies.fossil import scpc_plant as sp
+    from dispatches_tpu_torch.solvers.newton import NewtonOptions
+
+    for tes, tag in ((False, "[scpc]"), (True, "[scpc-tes]")):
+        if tag[1:-1] not in parts:
+            continue
+        t0 = _wall(torch)
+        m = sp.build_scpc_flowsheet(include_concrete_tes=tes)
+        sp.initialize(m)
+        t1 = _wall(torch)
+        nlp, res = sp.solve_plant(m, device=dev)
+        t2 = _wall(torch)
+        sol = nlp.unravel(res.x)
+        net = float(np.ravel(sol["net_power_output"])[0])
+        jax_net = sp.JAX_NET_POWER_MW[tes]
+        rel = abs(net - jax_net) / jax_net
+        print(f"{tag} n {nlp.n}: build and host initialization {t1 - t0:.1f} s; "
+              f"{int(res.iterations)} Newton iterations on the card ({t2 - t1:.1f} s), max residual "
+              f"{float(res.max_residual):.3e}; net power {net!r} MW (the JAX package's "
+              f"{jax_net!r}: {rel:.3e})")
+        check(bool(res.converged), f"{tag} Newton did not converge")
+        anchor = 625.0 if tes else 692.0
+        check(abs(net - anchor) <= 1e-2 * anchor, f"{tag} net power {net} not within 1% of {anchor}")
+        check(rel <= SCPC_JAX_RTOL, f"{tag} net power {rel:.3e} from the JAX package's")
+        if not tes:
+            wt = float(np.ravel(sol["bfpt.work_mechanical"])[0])
+            wp = float(np.ravel(sol["bfp.work_mechanical"])[0])
+            check(abs(wt + wp) <= 1e-9 * abs(wp), f"{tag} bfpt work {wt} vs bfp {wp}")
+            x_cpu = res.x.cpu()
+            r = nlp.eq(x_cpu, nlp.default_params())
+            r_max = float(r.abs().max())
+            print(f"{tag} the card's x on the CPU: max residual {r_max:.3e} (Newton tol "
+                  f"{NewtonOptions().tol}); bfpt {wt / 1e6:.6f} MW, bfp {wp / 1e6:.6f} MW")
+            check(r_max <= NewtonOptions().tol, f"{tag} CPU residual {r_max:.3e}")
+        else:
+            h_in = float(np.ravel(sol["tes.inlet_charge.enth_mol"])[0])
+            h_out = float(np.ravel(sol["tes.outlet_charge.enth_mol"])[0])
+            f_chg = float(np.ravel(sol["tes.inlet_charge.flow_mol"])[0])
+            frel = abs(f_chg - 0.1 * sp.BOILER_FLOW) / (0.1 * sp.BOILER_FLOW)
+            print(f"{tag} charge flow {f_chg:.6f} mol/s (0.1 x boiler: {frel:.3e}), h in "
+                  f"{h_in:.3f}, out {h_out:.3f} J/mol")
+            check(frel <= 1e-6, f"{tag} charge flow {frel:.3e} from 0.1 x the boiler flow")
+            check(h_in > h_out, f"{tag} the TES does not charge")
+            sp.unfix_dof_for_optimization(m)
+            freed = [n for n in ("boiler.inlet.flow_mol", "hp_splitter.split_fraction_2",
+                                 "tes.inlet_discharge.flow_mol") if not m.fs.var_specs[n].fixed]
+            check(len(freed) == 3, f"{tag} unfix_dof_for_optimization freed {freed}")
+
+
+def _design_line(tag, out, t, rs):
+    res = out["res"]
+    print(f"{tag} converged {res.converged} ({res.message}); {res.outer_iterations} outer "
+          f"iterations, {rs.last_evaluations} evaluations, {res.inner_failures} inner failures, "
+          f"{t:.1f} s ({t / max(rs.last_evaluations, 1):.2f} s per evaluation); cost "
+          f"{out['cost']!r} $/yr")
+    u = {k: float(np.ravel(v)[0]) for k, v in rs.u_physical(res.u).items()}
+    print(f"{tag} decisions {json.dumps(u)}")
+
+
+def charge_design(torch, dev, cold):
+    """[charge-design]: Solar salt with the HP source from the JAX
+    package's checkpoint at test_solar_hp_design's anchors: ``cold`` from
+    the duty-consistent start at maxiter 150 (``--only-phase 11``: 888 s
+    on the card, PERF.md), else from ``CHARGE_WARM_START`` at
+    ``WHOLE_DESIGN_ITERS``, where the cost must be that solve's."""
+    from dispatches_tpu_torch.case_studies.fossil import storage_charge_design as cd
+
+    t0 = _wall(torch)
+    m = cd.build_charge_model("solar_salt", "hp", load_from_file=STORAGE_INIT)
+    if cold:
+        out = cd.design_optimize(m, maxiter=DESIGN_ITERS, device=dev)
+    else:
+        out = cd.design_optimize(m, maxiter=WHOLE_DESIGN_ITERS, warm_start=CHARGE_WARM_START,
+                                 device=dev)
+    t1 = _wall(torch)
+    print(f"[charge-design] {'cold, maxiter' if cold else 'warm start, maxiter'} "
+          f"{DESIGN_ITERS if cold else WHOLE_DESIGN_ITERS}")
+    _design_line("[charge-design]", out, t1 - t0, out["rs"])
+    sol, res = out["sol"], out["res"]
+    power, duty = float(sol["plant_power_out"][0]), float(sol["hxc.heat_duty"][0])
+    print(f"[charge-design] area {out['hxc_area']!r} m2 (1838.2 +- 1%), salt flow "
+          f"{out['salt_flow']:.4f} kg/s, salt out {out['salt_T_out']:.4f} K (max "
+          f"{cd.SALT_T_MAX['solar_salt']}), plant {power!r} MW, duty {duty!r} W")
+    check(res.converged or res.inner_failures == 0, "[charge-design] not converged, inner failures")
+    check(abs(out["hxc_area"] - 1838.2) <= 1e-2 * 1838.2, f"[charge-design] area {out['hxc_area']}")
+    check(abs(out["cost"] - 90.56e6) <= 0.02 * 90.56e6, f"[charge-design] cost {out['cost']}")
+    check(abs(power - 400.0) <= 1e-6, f"[charge-design] plant power {power}")
+    check(abs(duty - 150e6) <= 1.0, f"[charge-design] duty {duty}")
+    check(out["salt_T_out"] < cd.SALT_T_MAX["solar_salt"], "[charge-design] salt above its maximum")
+    if not cold:
+        gap = abs(out["cost"] - CHARGE_WARM_COST) / CHARGE_WARM_COST
+        print(f"[charge-design] cost vs the cold solve's {CHARGE_WARM_COST!r}: {gap:.3e}")
+        check(gap <= CHARGE_WARM_RTOL, f"[charge-design] cost {gap:.3e} from the cold solve's")
+    return out
+
+
+def design_trace(torch, dev, out):
+    """[design-trace]: one warm evaluation of the charge design NLP (its
+    Newton solve from the solution, objective, constraints and adjoints)
+    at ``out`` ([charge-design]'s result) under the profiler."""
+    rs, res = out["rs"], out["res"]
+    u = torch.as_tensor(np.asarray(res.u, dtype=np.float64), device=dev)
+    x = torch.as_tensor(np.asarray(res.x, dtype=np.float64), device=dev)
+    rs._evaluate_dev(u, x)   # warm
+    torch.cuda.synchronize()
+    ev, _, by_name, total, window = profile_run(torch, lambda: rs._evaluate_dev(u, x),
+                                                "[design-trace]")
+    if by_name:
+        launches = sum(n for n, _ in by_name.values())
+        print(f"[design-trace] one warm evaluation (n {rs.nlp.n}, converged {bool(ev[5])}): "
+              f"{launches} device launches, {total / 1e3:.3f} ms device time, "
+              f"{window / 1e3:.3f} ms window")
+
+
+def discharge_design(torch, dev, maxiter):
+    """[discharge-design]: the condenser-pump source at
+    test_condpump_design_anchor's anchors: maxiter 150 in ``--only-phase
+    11``, ``WHOLE_DESIGN_ITERS`` in the whole run (the active-set polish
+    then lands on the same design: PERF.md)."""
+    from dispatches_tpu_torch.case_studies.fossil import storage_discharge_design as dd
+
+    t0 = _wall(torch)
+    m = dd.build_discharge_model("condpump")
+    t1 = _wall(torch)
+    out = dd.design_optimize(m, maxiter=maxiter, device=dev)
+    t2 = _wall(torch)
+    print(f"[discharge-design] maxiter {maxiter}; build and host initialization {t1 - t0:.1f} s")
+    _design_line("[discharge-design]", out, t2 - t1, out["rs"])
+    sol, res = out["sol"], out["res"]
+    power, duty = float(sol["plant_power_out"][0]), float(sol["hxd.heat_duty"][0])
+    print(f"[discharge-design] area {out['hxd_area']!r} m2 (1912.2 +- 1%), salt out "
+          f"{out['salt_T_out']!r} K (513.15 +- 1), storage turbine {out['es_power_mw']!r} MW, "
+          f"plant {power!r} MW, duty {duty!r} W, polished converged {out['converged']}")
+    check(out["converged"] or res.inner_failures == 0,
+          "[discharge-design] not converged, inner failures")
+    check(abs(power - 400.0) <= 1e-6, f"[discharge-design] plant power {power}")
+    check(abs(duty - 148.5e6) <= 10.0, f"[discharge-design] duty {duty}")
+    check(abs(out["hxd_area"] - 1912.2) <= 1e-2 * 1912.2, f"[discharge-design] area {out['hxd_area']}")
+    check(abs(out["salt_T_out"] - 513.15) <= 1.0, f"[discharge-design] salt out {out['salt_T_out']}")
+    check(20.0 < out["es_power_mw"] < 60.0, f"[discharge-design] storage turbine {out['es_power_mw']}")
+
+
+def design_study(torch, dev, which):
+    """[charge-study] / [discharge-study]: the full enumeration with
+    ``isolate=True`` (each combination in a child Python on the card);
+    the best design must be solar salt / HP and the condenser pump."""
+    from dispatches_tpu_torch.case_studies.fossil import storage_charge_design as cd
+    from dispatches_tpu_torch.case_studies.fossil import storage_discharge_design as dd
+
+    tag = f"[{which}-study]"
+    t0 = time.perf_counter()
+
+    def ended(r):
+        # each combination's summary as its child ends (a run cut by its
+        # time limit still shows the combinations that finished)
+        print(f"{tag} at {time.perf_counter() - t0:.1f} s: {json.dumps(r, sort_keys=True)}",
+              flush=True)
+
+    if which == "charge":
+        out = cd.run_design_study(load_from_file=STORAGE_INIT, maxiter=STUDY_ITERS, isolate=True,
+                                  device=dev, on_result=ended)
+        want = {"salt": "solar_salt", "source": "hp"}
+    else:
+        out = dd.run_design_study(maxiter=STUDY_ITERS, isolate=True, device=dev, on_result=ended)
+        want = {"source": "condpump"}
+    t1 = time.perf_counter()
+    best = out["best"]
+    print(f"{tag} {len(out['results'])} combinations in {t1 - t0:.1f} s; best "
+          f"{json.dumps(best, sort_keys=True)}")
+    check(best is not None, f"{tag} no feasible design")
+    check(all(best[k] == v for k, v in want.items()), f"{tag} best {best}, want {want}")
+
+
+def phase_designs(torch, dev, only=False, parts=DESIGN_PARTS):
+    """Phase 11, with the sweep kernels' counts set to 0 before and read
+    after: the design studies and the concrete-TES branch solve through
+    Newton on the card and SciPy on the host, so neither CUDA sweep is
+    launched.  The enumerations run only with ``only`` (``--only-phase
+    11``); ``parts`` picks some parts (the whole run splits the phase in
+    two child processes, ``CHILD_GROUPS``)."""
+    from dispatches_tpu_torch.kernels import pdhg_sweep as ks
+
+    ks.avg_sweep.launches = 0
+    ks.halpern_sweep.launches = 0
+    t0 = time.perf_counter()
+    if "tes" in parts:
+        tes_units(torch, dev)
+    if "tube" in parts:
+        tube_unit(torch, dev)
+    if {"scpc", "scpc-tes"} & set(parts):
+        scpc_plants(torch, dev, parts)
+    out = charge_design(torch, dev, cold=only) if "charge-design" in parts else None
+    if "design-trace" in parts:
+        design_trace(torch, dev, out or charge_design(torch, dev, cold=False))
+    if "discharge-design" in parts:
+        discharge_design(torch, dev, DESIGN_ITERS if only else WHOLE_DESIGN_ITERS)
+    for which in ("charge", "discharge"):
+        if f"{which}-study" in parts and not only:
+            print(f"[{which}-study] cut from the whole run for time (--only-phase 11 runs it)")
+        elif f"{which}-study" in parts:
+            design_study(torch, dev, which)
+    print(f"[phase11] {time.perf_counter() - t0:.1f} s; sweep kernel launches during it: "
+          f"halpern {ks.halpern_sweep.launches}, avg {ks.avg_sweep.launches}")
+    check(ks.halpern_sweep.launches == 0 and ks.avg_sweep.launches == 0,
+          "[phase11] the design studies launched a sweep kernel")
+
+
 # The whole run drives these groups of phases in child processes (this
 # script with a private flag), started after phase 3's kernel timings and
 # running beside phases 4, 5, 8 and 9 in the main process: every phase
@@ -3495,19 +3881,22 @@ def phase_storage(torch, dev, only=False, parts=STORAGE_PARTS):
 # reads its own sweep-kernel counts around its phase.
 CHILD_FLAG = "--phase-child"
 CHILD_GROUPS = (("6",), ("7",), ("10", "salt-hx", "isp", "isp-init", "isp-analysis"),
-                ("10", "mp-eval", "usc-bid-track", "mp-usc"))
+                ("10", "mp-eval", "usc-bid-track", "mp-usc"),
+                ("11",))
 CHILD_THREADS = "2"        # BLAS and torch threads per child (8 host cores in all)
 WHOLE_RUN_S = 1140.0       # the run fails itself past this, inside the 1,200 s limit
 
 
 def whole_run_phase(torch, dev, phase, parts=()):
-    """Phase 6, 7 or 10 (``parts`` of it) at the whole run's depth."""
+    """Phase 6, 7, 10 or 11 (``parts`` of it) at the whole run's depth."""
     if phase == "6":
         phase_hydrogen(torch, dev, pem_batch_model(torch, dev))
     elif phase == "7":
         phase_double_loop(torch, dev)
-    else:
+    elif phase == "10":
         phase_storage(torch, dev, parts=parts)
+    else:
+        phase_designs(torch, dev, parts=parts or DESIGN_PARTS)
 
 
 def phase_child(torch, parent, phase, parts):
@@ -3595,14 +3984,18 @@ def main():
              "8": lambda dev: phase_sweep(torch, dev, flagship(torch, dev)),
              "9": lambda dev: phase_fossil_serve(torch, dev, flagship(torch, dev)),
              "10": lambda dev: phase_storage(torch, dev, only=True,
-                                             parts=sys.argv[3:] or STORAGE_PARTS)}
+                                             parts=sys.argv[3:] or STORAGE_PARTS),
+             "11": lambda dev: phase_designs(torch, dev, only=True,
+                                             parts=sys.argv[3:] or DESIGN_PARTS)}
+    part_names = {"10": STORAGE_PARTS, "11": DESIGN_PARTS}
     if sys.argv[1:2] == ["--only-phase"]:
         # a development run of one phase alone: no kernel build, no result
-        # line; phase 10 takes a list of its parts
+        # line; phases 10 and 11 take a list of their parts
         if sys.argv[2:3] not in [[n] for n in alone] or (
-                sys.argv[3:] and (sys.argv[2] != "10" or set(sys.argv[3:]) - set(STORAGE_PARTS))):
+                sys.argv[3:] and (sys.argv[2] not in part_names
+                                  or set(sys.argv[3:]) - set(part_names[sys.argv[2]]))):
             fail(f"--only-phase takes one of {', '.join(alone)}; 10 also takes parts of "
-                 f"{', '.join(STORAGE_PARTS)}")
+                 f"{', '.join(STORAGE_PARTS)}; 11 of {', '.join(DESIGN_PARTS)}")
         phase_device_info(torch)
         alone[sys.argv[2]](torch.device("cuda"))
         print(f"[only-phase {sys.argv[2]}] done (no result line: not the smoke test's full run)")

@@ -23,8 +23,10 @@ given numpy, ``kmeans_fit``, ``kmeans_fit_softdtw``,
 ``solve_square``, ``make_newton_solver``, ``make_batched_newton_solver``,
 ``solve_plant``, ``model_analysis``, ``ReducedSpaceNLP``,
 ``BatchedReducedSpaceNLP``, the storage plant's ``main`` and
-``model_analysis``, ``MultiPeriodUscModel``, ``run_pricetaker_analysis``
-and ``MultiPeriodUsc``) run on ``cuda`` unless the caller
+``model_analysis``, ``MultiPeriodUscModel``, ``run_pricetaker_analysis``,
+``MultiPeriodUsc``, the supercritical plant's ``solve_plant``, and the
+charge and discharge design studies' ``design_optimize`` and
+``run_design_study``) run on ``cuda`` unless the caller
 passes ``device="cpu"``;
 with no card and no ``device=`` they raise instead of carrying on quietly
 on the CPU.
@@ -58,7 +60,10 @@ molten-salt storage chain: the salt/steam heat exchanger
 (``models/salt_hx.py``), the lane-batched Newton solver, the
 reduced-space solver (``solvers/reduced.py``), the USC plant integrated
 with storage, its multiperiod price-taker and its double-loop participant
-(``case_studies/fossil``).
+(``case_studies/fossil``); and the charge and discharge storage design
+studies, the concrete TES (``models/concrete_tes.py``), the tube-side
+heat exchanger (``models/heat_exchanger_tube.py``) and the 692 MW
+supercritical plant with the TES (``case_studies/fossil/scpc_plant.py``).
 """
 
 import torch

@@ -2,9 +2,10 @@
 ``dispatches_tpu.case_studies.fossil``): the ultra-supercritical
 pulverized-coal plant (``usc_plant``), the plant integrated with
 molten-salt storage (``storage_integrated``), its multiperiod
-price-taker (``storage_multiperiod``) and its double-loop participant
-(``multiperiod_double_loop``).  The supercritical plant with concrete
-storage and the charge and discharge designs come later."""
+price-taker (``storage_multiperiod``), its double-loop participant
+(``multiperiod_double_loop``), the charge and discharge storage design
+studies (``storage_charge_design``, ``storage_discharge_design``) and
+the 692 MW supercritical plant with the concrete TES (``scpc_plant``)."""
 
 from dispatches_tpu_torch.case_studies.fossil.usc_plant import (  # noqa: F401
     build_plant_model,
@@ -21,4 +22,9 @@ from dispatches_tpu_torch.case_studies.fossil.multiperiod_double_loop import (  
     MultiPeriodUsc,
     UscSelfScheduler,
     UscTracker,
+)
+from dispatches_tpu_torch.case_studies.fossil.scpc_plant import (  # noqa: F401
+    ScpcModel,
+    build_scpc_flowsheet,
+    unfix_dof_for_optimization,
 )

@@ -1,5 +1,6 @@
 """Learned warm starts (counterpart of ``dispatches_tpu.learn``): the MLP
-head (``predictor``) and its full-batch Adam fit plus the serve-side
+head (``predictor``, with ``snap_to_bounds``) and its full-batch Adam fit
+(also offline from a sweep store or a warm index) plus the serve-side
 online trainer (``train``)."""
 
 from dispatches_tpu_torch.learn.predictor import (  # noqa: F401
@@ -8,12 +9,15 @@ from dispatches_tpu_torch.learn.predictor import (  # noqa: F401
     forward,
     init_params,
     predict_enabled,
+    snap_to_bounds,
 )
 from dispatches_tpu_torch.learn.train import (  # noqa: F401
     OnlineTrainer,
     ReplayBuffer,
     default_refit_every,
     fit,
+    fit_from_index,
+    fit_from_store,
 )
 
 __all__ = [
@@ -23,7 +27,10 @@ __all__ = [
     "default_hidden",
     "default_refit_every",
     "fit",
+    "fit_from_index",
+    "fit_from_store",
     "forward",
     "init_params",
     "predict_enabled",
+    "snap_to_bounds",
 ]

@@ -42,6 +42,7 @@ __all__ = [
     "forward",
     "init_params",
     "predict_enabled",
+    "snap_to_bounds",
 ]
 
 DEFAULT_HIDDEN = 32
@@ -107,6 +108,28 @@ def forward(params: Dict, vec):
     vn = (vec.to(dt) - p["in_mean"]) / p["in_scale"]
     out = vn @ p["w_lin"] + torch.tanh(vn @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
     return out * p["out_scale"] + p["out_mean"]
+
+
+def snap_to_bounds(x, lb, ub, eps: float = 1e-3):
+    """Snap a predicted primal start onto finite variable bounds it
+    nearly touches (within ``eps`` relative), then clip into the box
+    (host numpy, float32).
+
+    LP solutions sit at vertices: most primal coordinates are exactly
+    *at* a bound, and a regression head lands ``eps``-close instead.
+    Snapping restores the active-set structure the PDHG iteration
+    locks onto quickly.  Primal only — never snap or otherwise round a
+    predicted dual; truncating duals against their sign constraints is
+    catastrophic (the solver's own ingestion handles the sign split).
+    """
+    x = np.asarray(x, np.float32)
+    lb = np.asarray(lb, np.float32)
+    ub = np.asarray(ub, np.float32)
+    tol_lb = eps * (1.0 + np.abs(lb))
+    tol_ub = eps * (1.0 + np.abs(ub))
+    x = np.where(np.isfinite(lb) & (np.abs(x - lb) < tol_lb), lb, x)
+    x = np.where(np.isfinite(ub) & (np.abs(x - ub) < tol_ub), ub, x)
+    return np.clip(x, lb, ub)
 
 
 class StartPredictor:

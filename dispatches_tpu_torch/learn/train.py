@@ -11,9 +11,10 @@ both packages fit the same problem.
 logic): ``observe()`` is a cheap bounded-replay-buffer append called
 from the completion path, ``due()`` an O(1) cadence check, and
 ``refit()`` — the only expensive call — runs from ``SolveService.poll``
-on the service clock, never on the submit hot path.  Fitting from the
-sweep store or a warm index (``fit_from_store``/``fit_from_index``) and the
-trainer's snapshot state wait for the sweep and snapshot ports.
+on the service clock, never on the submit hot path.  ``fit_from_store``
+and ``fit_from_index`` fit offline from a warm-start sweep's saved
+solutions (``sweep/store.py:ResultStore.training_pairs``) or a live warm
+index (``serve/warmstart.py:WarmStartIndex.export_pairs``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ __all__ = [
     "ReplayBuffer",
     "default_refit_every",
     "fit",
+    "fit_from_index",
+    "fit_from_store",
 ]
 
 DEFAULT_REFIT_EVERY = 64
@@ -141,6 +144,24 @@ def fit(vecs, xs, zs, *, hidden: Optional[int] = None, seed: int = 0,
                t(Xp), t(Ynp), t(w), int(epochs), float(lr))
     params.update({k: v.cpu().numpy() for k, v in tr.items()})
     return StartPredictor(params, n, m)
+
+
+def fit_from_store(store, **kwargs) -> StartPredictor:
+    """Offline fit from a warm-start sweep's saved solutions
+    (:meth:`ResultStore.training_pairs`; raises on a store swept
+    without ``warm_start``).  ``kwargs`` go to :func:`fit`."""
+    vecs, xs, zs = store.training_pairs()
+    return fit(vecs, xs, zs, **kwargs)
+
+
+def fit_from_index(index, **kwargs) -> StartPredictor:
+    """Offline fit from a live :class:`WarmStartIndex`
+    (:meth:`export_pairs`; raises on an empty index).  ``kwargs`` go to
+    :func:`fit`."""
+    vecs, xs, zs = index.export_pairs()
+    if len(vecs) == 0:
+        raise ValueError("fit_from_index: the index is empty")
+    return fit(np.stack(vecs), np.stack(xs), np.stack(zs), **kwargs)
 
 
 class ReplayBuffer:

@@ -1,14 +1,16 @@
 """Unit models of the port (counterpart of ``dispatches_tpu.models``):
 the wind, PV, battery, splitter, PEM electrolyzer, simple and detailed
 hydrogen tanks, translator, mixer and hydrogen turbine, the IAPWS-95
-steam-cycle units (``steam_cycle``) and the molten-salt / steam heat
-exchanger (``salt_hx``).  The other fossil models
-(``heat_exchanger_tube.py``, ``concrete_tes.py``) wait for the next
-fossil slices."""
+steam-cycle units (``steam_cycle``), the molten-salt / steam heat
+exchanger (``salt_hx``), the concrete thermal-energy storage
+(``concrete_tes``) and the tube-side heat exchanger against a wall
+profile (``heat_exchanger_tube``)."""
 
 from dispatches_tpu_torch.models.base import StateBundle
 from dispatches_tpu_torch.models.battery import BatteryStorage
+from dispatches_tpu_torch.models.concrete_tes import ConcreteTES
 from dispatches_tpu_torch.models.elec_splitter import ElectricalSplitter
+from dispatches_tpu_torch.models.heat_exchanger_tube import ConcreteTubeSide
 from dispatches_tpu_torch.models.hydrogen_tank import HydrogenTank
 from dispatches_tpu_torch.models.hydrogen_tank_simplified import SimpleHydrogenTank
 from dispatches_tpu_torch.models.hydrogen_turbine import HydrogenTurbine
@@ -43,4 +45,6 @@ __all__ = [
     "HydrogenTurbine",
     "HXGeometry",
     "SaltSteamHX",
+    "ConcreteTubeSide",
+    "ConcreteTES",
 ]

@@ -1,12 +1,15 @@
-"""Model-state checkpoints as warm starts (the warm-start half of
-``dispatches_tpu/utils/checkpoint.py``, host numpy).
+"""Model-state checkpoints (counterpart of
+``dispatches_tpu/utils/checkpoint.py``, host numpy; the files are the
+JAX package's, and each package reads what the other writes).
 
 Model state is a nested dict of named arrays (a solution dict from
 ``CompiledNLP.unravel``), serialized to ``.npz`` with a json manifest
 for structure; :func:`solution_x0` and :func:`warm_start_from` turn a
 saved or in-memory solution back into a physical ``x0``, guarded
 against a changed model layout.  The solve service's IPM warm-start LRU
-uses :func:`solution_x0`.  ``save_solution`` is not ported yet.
+uses :func:`solution_x0`.  :func:`save_solution` checkpoints a solve
+(solution, duals and metadata; tensors on any device are brought to the
+host).
 """
 
 from __future__ import annotations
@@ -77,6 +80,32 @@ def load_state(path):
     path = Path(path)
     data = np.load(path.with_suffix(".npz"))
     return _unflatten({k: data[k] for k in data.files})
+
+
+def _host(a) -> np.ndarray:
+    if hasattr(a, "detach"):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def save_solution(path, nlp, res) -> Path:
+    """Checkpoint a solve: unraveled physical solution + duals +
+    metadata (the reference's solved-flowsheet json snapshot)."""
+    sol = nlp.unravel(res.x)
+    tree = {
+        "solution": sol,
+        "duals": {
+            "lam": _host(res.lam),
+            "z_l": _host(res.z_l),
+            "z_u": _host(res.z_u),
+        },
+        "meta": {
+            "obj": _host(res.obj),
+            "kkt_error": _host(res.kkt_error),
+            "x": _host(res.x),
+        },
+    }
+    return save_state(path, tree)
 
 
 def solution_x0(sol: Dict, nlp) -> Optional[np.ndarray]:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Rehearse phases 6 to 10 of ``chip_smoke.py`` on the CPU, and count
+"""Rehearse phases 6 to 11 of ``chip_smoke.py`` on the CPU, and count
 the operations their solver iterations dispatch.
 
     python3 tools/cpu_rehearsal.py ops [--horizon 24]
@@ -11,6 +11,7 @@ the operations their solver iterations dispatch.
     python3 tools/cpu_rehearsal.py phase9 [serve] [iapws] [usc] [ipm]
     python3 tools/cpu_rehearsal.py ops10
     python3 tools/cpu_rehearsal.py phase10 [salt] [isp] [init] [analysis] [mp] [bid] [bid25] [mpusc]
+    python3 tools/cpu_rehearsal.py phase11 [--whole] [tes] [tube] [scpc] [scpc-tes] [charge-design] ...
 
 ``ops`` counts the aten operations that one Newton iteration of the IPM
 dispatches (the difference between ``max_iter=3`` and ``max_iter=1``,
@@ -54,6 +55,16 @@ vs CPU), ``isp``, ``init`` ([isp-init]), ``analysis`` ([isp-analysis],
 ([usc-bid-track] at the whole run's depth), ``bid25`` (at 25 outer
 iterations, as ``--only-phase 10``; ~30 min) and ``mpusc`` ([mp-usc], the
 longest).
+
+``phase11`` runs phase 11's parts on the CPU under chip_smoke.py's part
+names (``tes``, ``tube``, ``scpc`` by default, ~1 min; ``scpc-tes``
+~1 min; ``charge-design`` cold at maxiter 150 ~25 min, which prints the
+decisions that chip_smoke.py's ``CHARGE_WARM_START`` holds, and
+``discharge-design`` longer; ``design-trace`` as a plain call;
+``charge-study`` and ``discharge-study``, the enumerations, much longer);
+card vs CPU becomes CPU vs CPU.  ``--whole`` runs them at the whole run's
+depth (the charge design warm-started at maxiter 1, the discharge design
+at maxiter 1, the enumerations cut; ~3 min for every part).
 """
 
 from __future__ import annotations
@@ -382,6 +393,22 @@ def phase10(parts):
     print(f"{len(failed)} check(s) failed")
 
 
+def phase11(parts, whole=False):
+    _stub_cuda()
+    torch.set_num_threads(2)
+    failed = []
+
+    def check(cond, msg):
+        if not cond:
+            print(f"check failed: {msg}")
+            failed.append(msg)
+
+    cs.check = check
+    cs.profile_run = lambda torch_, run, tag: (run(), None, {}, 0.0, 0.0)
+    cs.phase_designs(torch, CPU, only=not whole, parts=tuple(parts))
+    print(f"{len(failed)} check(s) failed")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -406,6 +433,10 @@ def main(argv=None):
                      choices=["salt", "isp", "init", "analysis", "mp", "bid", "bid25",
                               "mpusc"])
     sub.add_parser("ops10", help="operations per reduced-space evaluation")
+    p11 = sub.add_parser("phase11", help="chip_smoke.py phase 11 on the CPU")
+    p11.add_argument("parts", nargs="*", default=["tes", "tube", "scpc"],
+                     choices=list(cs.DESIGN_PARTS))
+    p11.add_argument("--whole", action="store_true", help="at the whole run's depth")
     cc = sub.add_parser("crash-child", help="phase 9's [crash] child, on the CPU")
     cc.add_argument("dir")
     args = ap.parse_args(argv)
@@ -417,6 +448,8 @@ def main(argv=None):
         count_ops10()
     elif args.cmd == "phase10":
         phase10(set(args.parts))
+    elif args.cmd == "phase11":
+        phase11(args.parts, args.whole)
     elif args.cmd == "crash-child":
         cs.crash_child(args.dir, device="cpu")
     elif args.cmd == "phase9":
