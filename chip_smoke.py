@@ -3,8 +3,8 @@
 NVIDIA GPU.  Run from the repository root: ``python3 chip_smoke.py``.
 
 Phases (any failure exits nonzero; nothing is caught and passed over).
-Phases 1-3 run alone; then phases 6, 7, 10 (split in two) and 11 run in
-child processes of this script beside phases 4, 5, 8 and 9
+Phases 1-3 run alone; then phases 6, 7, 10 (split in two), 11 and 12 run
+in child processes of this script beside phases 4, 5, 8 and 9
 (``CHILD_GROUPS``), each child's output echoed when it ends:
 
 1. device: print the card's name and power limit (nvidia-smi), build the
@@ -162,9 +162,28 @@ child processes of this script beside phases 4, 5, 8 and 9
    the full enumerations with ``isolate=True``, each combination's child
    Python running concurrently (``--only-phase 11`` only), selecting
    solar/HP and condpump.
+12. the execution layer's mesh paths, adaptive depth and cost cards (one
+   card: a mesh names cuda:0 several times; the halpern kernel's count
+   is read around the phase and must be above 0): ``[mesh]``
+   ``scenario_sharded_solver`` over the float64 batch PDLP on the CUDA
+   sweeps (tol 1e-8) at phase 2's 366 scenarios, on ("cuda:0",) and on
+   cuda:0 four times (2 pad lanes), each with the unsplit run's iteration
+   counts and objectives within 1e-8 relative, 16 lanes within 1e-6 of
+   HiGHS, and the first shard bitwise the solve of its own 92 lanes;
+   ``[dryrun]`` ``dryrun_multichip(4)``; ``[sweep-mesh]`` phase 8's
+   spec through the mesh backend within 1e-8 of the direct backend;
+   ``[bids-mesh]`` two days of ``compute_day_ahead_bids_batch`` on the
+   73-bus synthetic case over a 2-entry mesh within 1e-9 of the mesh-free
+   batch; ``[mlp-mesh]`` ``_train_mlp`` over 4 shards within 1e-9 of the
+   unsplit training; ``[adaptive]`` phase 5's 366 requests with inflight
+   2 and inflight_max 6, the depth trajectory and decisions printed and
+   replayed from the recorded spans through a fresh controller;
+   ``[profile]`` with cost cards on, a card with peak bytes for every
+   ``serve.`` program signature and the admission prior set before the
+   first dispatch completes.
 
 Phase 3 times every kernel tier at B = 366, 1024 and 4096.
-``--only-phase 6``, ``7``, ``8``, ``9``, ``10`` and ``11`` run one of those
+``--only-phase 6``, ``7``, ``8``, ``9``, ``10``, ``11`` and ``12`` run one of those
 phases alone, for development (no kernel build, no result line; ``7``
 with ``[dl-trace]``, ``10`` with ``[mp-usc]`` and ``[usc-bid-track]`` at
 full depth, ``11`` with both enumerations; ``10`` and ``11`` also with
@@ -3873,6 +3892,351 @@ def phase_designs(torch, dev, only=False, parts=DESIGN_PARTS):
           "[phase11] the design studies launched a sweep kernel")
 
 
+# ---------------------------------------------------------------------
+# phase 12: the execution layer's mesh paths, adaptive depth, cost cards
+# ---------------------------------------------------------------------
+
+MESH_ENTRIES = 4         # [mesh], [sweep-mesh], [mlp-mesh]: cuda:0 named four times
+MESH_PDLP_TOL = 1e-8     # [mesh]: the float64 batch PDLP's tolerance
+MESH_LANE_RTOL = 1e-8    # [mesh] objectives vs the unsplit run (the solve's tolerance)
+MESH_BID_DAYS = 2        # [bids-mesh]: bid days over a 2-entry mesh
+MESH_BID_RTOL = 1e-9     # [bids-mesh] vs the mesh-free day batch
+MESH_MLP_RTOL = 1e-9     # [mlp-mesh] vs the unsplit training
+ADAPTIVE_INFLIGHT, ADAPTIVE_MAX = 2, 6   # [adaptive]: the plan's window and its bound
+
+
+def _repeated_mesh(dev, n, axis="scenario"):
+    from dispatches_tpu_torch.parallel import Mesh
+
+    return Mesh([dev] * n, axis_names=(axis,))
+
+
+def _rel_max(got, want):
+    got, want = np.asarray(got, dtype=float), np.asarray(want, dtype=float)
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-300)))
+
+
+def mesh_solves(torch, dev, main_run):
+    """[mesh]: ``scenario_sharded_solver`` over the batch PDLP on the CUDA
+    sweeps (float64, tol 1e-8) at phase 2's 366 scenarios, on the mesh
+    ("cuda:0",) and on cuda:0 named four times (366 is no multiple of 4:
+    2 lanes padded), each held to the unsplit run and 16 lanes to HiGHS."""
+    from dispatches_tpu_torch.kernels import pdhg_sweep as ks
+    from dispatches_tpu_torch.parallel import Mesh, scenario_sharded_solver
+    from dispatches_tpu_torch.solvers import BatchPDLPOptions, make_pdlp_batch_solver
+
+    nlp, lp, lmps, cfs = main_run["nlp"], main_run["lp"], main_run["lmps"], main_run["cfs"]
+    solver = make_pdlp_batch_solver(
+        nlp, BatchPDLPOptions(tol=MESH_PDLP_TOL, dtype="float64", sweep="cuda"),
+        lp_data=lp, device=dev)
+    batched = {"lmp": lmps * 1e-3, "windpower.capacity_factor": cfs}
+    d = nlp.default_params()
+    params = {"p": {**d["p"], **batched}, "fixed": d["fixed"]}
+    solver(params)  # warm-up: cuBLAS and the f64 kernels
+    torch.cuda.synchronize()
+    launches = ks.halpern_sweep.launches
+    t0 = time.perf_counter()
+    ref = solver(params)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    ref_obj, ref_it = ref.obj.cpu().numpy(), ref.iters.cpu().numpy()
+    print(f"[mesh] unsplit: {N_SCENARIOS} lanes in {t_ref:.2f} s, iterations mean "
+          f"{ref_it.mean():.1f} max {ref_it.max()}, halpern launches "
+          f"{ks.halpern_sweep.launches - launches}")
+    for mesh in (Mesh([dev]), _repeated_mesh(dev, MESH_ENTRIES)):
+        solve = scenario_sharded_solver(nlp, mesh, batched_keys=tuple(batched),
+                                        solver=solver, full_result=True)
+        before = ks.halpern_sweep.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve(batched)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_launch = ks.halpern_sweep.launches - before
+        obj, it = res.obj.cpu().numpy(), res.iters.cpu().numpy()
+        entries = len(mesh.devices)
+        pad = (-N_SCENARIOS) % entries
+        gap = _rel_max(obj, ref_obj)
+        same_it = bool(np.array_equal(it, ref_it))
+        err = np.abs(obj[:N_HIGHS] - main_run["ref"]) / np.maximum(np.abs(main_run["ref"]), 1.0)
+        print(f"[mesh] {entries} entries ({pad} pad lanes, {(N_SCENARIOS + pad) // entries} "
+              f"lanes a shard): {dt:.2f} s, halpern launches {n_launch}; vs unsplit: "
+              f"iterations equal {same_it}, objectives max rel diff {gap:.3e}, bitwise "
+              f"{bool(np.array_equal(obj, ref_obj))}; obj_rel_err_vs_highs({N_HIGHS}) max "
+              f"{err.max():.3e}")
+        check(obj.shape == (N_SCENARIOS,) and np.all(np.isfinite(obj)),
+              f"[mesh] {entries} entries: objectives not finite of shape ({N_SCENARIOS},)")
+        check(n_launch > 0, f"[mesh] {entries} entries: the halpern kernel was never launched")
+        if entries > 1:
+            # a shard is the solve of its own lanes: the first shard's 92
+            # lanes solved alone, no mesh, bitwise
+            k = (N_SCENARIOS + pad) // entries
+            alone = solver({"p": {**d["p"], **{key: v[:k] for key, v in batched.items()}},
+                            "fixed": d["fixed"]})
+            shard_bitwise = bool(torch.equal(alone.obj.cpu(), res.obj[:k].cpu())
+                                 and torch.equal(alone.iters.cpu(), res.iters[:k].cpu()))
+            print(f"[mesh] the first shard's {k} lanes solved alone: bitwise the mesh's "
+                  f"{shard_bitwise}; their objectives vs the 366-lane batch max rel diff "
+                  f"{_rel_max(alone.obj.cpu().numpy(), ref_obj[:k]):.3e}")
+            check(shard_bitwise, "[mesh] a shard differs from the solve of its own lanes")
+        check(same_it, f"[mesh] {entries} entries: iteration counts differ from the unsplit run")
+        check(gap <= MESH_LANE_RTOL, f"[mesh] {entries} entries: objectives {gap:.3e} from "
+                                     f"the unsplit run")
+        check(err.max() <= IPM_RTOL, f"[mesh] objective error {err.max():.3e} > {IPM_RTOL}")
+
+
+def mesh_dryrun(torch, dev):
+    """[dryrun]: ``dryrun_multichip(4)``: horizon 8, 9 scenarios on a
+    4-entry mesh (one card visible: cuda:0 four times)."""
+    from dispatches_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    objs = dryrun_multichip(MESH_ENTRIES)
+    torch.cuda.synchronize()
+    objs = objs.cpu().numpy()
+    print(f"[dryrun] dryrun_multichip({MESH_ENTRIES}) on {torch.cuda.device_count()} visible "
+          f"card(s): {len(objs)} objectives in {time.perf_counter() - t0:.2f} s, "
+          f"{np.round(objs, 4).tolist()}")
+    check(objs.shape == (2 * MESH_ENTRIES + 1,) and np.all(np.isfinite(objs)),
+          "[dryrun] objectives not finite")
+
+
+def sweep_mesh(torch, dev, main_run, work):
+    """[sweep-mesh]: phase 8's 366-point spec through ``run_sweep``'s mesh
+    backend on cuda:0 named four times, held to the direct backend."""
+    from dispatches_tpu_torch.sweep import run_sweep
+
+    nlp, spec = main_run["nlp"], _sweep_spec(main_run["lmps"])
+    t0 = time.perf_counter()
+    direct = run_sweep(nlp, spec, store_dir=work / "direct", options=_sweep_options(),
+                       device=dev)
+    t1 = time.perf_counter()
+    meshed = run_sweep(nlp, spec, store_dir=work / "mesh", options=_sweep_options(backend="mesh"),
+                       mesh=_repeated_mesh(dev, MESH_ENTRIES), device=dev)
+    t2 = time.perf_counter()
+    a, b = meshed.arrays(), direct.arrays()
+    gap = _rel_max(a["obj"], b["obj"])
+    print(f"[sweep-mesh] {spec.n_points} points: direct {t1 - t0:.2f} s, mesh backend over "
+          f"{MESH_ENTRIES} entries {t2 - t1:.2f} s; objectives max rel diff {gap:.3e}, "
+          f"iterations equal {bool(np.array_equal(a['iterations'], b['iterations']))}")
+    check(meshed.is_complete and np.all(np.isfinite(a["obj"])), "[sweep-mesh] store")
+    check(gap <= SWEEP_SERVE_RTOL, f"[sweep-mesh] objectives {gap:.3e} from the direct backend")
+
+
+def bids_mesh(torch, dev, work):
+    """[bids-mesh]: MESH_BID_DAYS days of ``compute_day_ahead_bids_batch``
+    on the 73-bus synthetic case, over a 2-entry mesh and without one."""
+    from dispatches_tpu_torch.case_studies.renewables.wind_battery_double_loop import (
+        MultiPeriodWindBattery,
+    )
+    from dispatches_tpu_torch.grid import Bidder, ThermalGeneratorModelData
+    from dispatches_tpu_torch.grid.market import load_rts_gmlc_case
+
+    case = load_rts_gmlc_case(write_synthetic_rts(
+        work / "rts73", DL_BUSES, DL_BRANCHES, DL_THERMAL, DL_RENEWABLE, seed=DL_SEED))
+    ren = {r.name: r for r in case.renewables}["4_WIND"]
+    cfs = np.asarray(ren.rt_cap) / max(ren.rt_cap.max(), 1e-9)
+    md = ThermalGeneratorModelData(gen_name="4_WIND", bus=ren.bus, p_min=0.0, p_max=120.0,
+                                   startup_capacity=0.0, shutdown_capacity=135.0)
+    mp = MultiPeriodWindBattery(model_data=md, wind_capacity_factors=cfs, wind_pmax_mw=120.0,
+                                battery_pmax_mw=15.0, battery_energy_capacity_mwh=60.0)
+    scen = 20.0 + 5.0 * np.random.default_rng(DL_SEED).random((3, 48))
+
+    class Fixed:
+        def forecast_day_ahead_prices(self, date, hour, bus, horizon, n):
+            return scen[:n, :horizon]
+
+        forecast_real_time_prices = forecast_day_ahead_prices
+
+    bidder = Bidder(bidding_model_object=mp, day_ahead_horizon=48, real_time_horizon=4,
+                    n_scenario=3, forecaster=Fixed(), device=dev)
+    dates = [f"2020-07-{10 + i:02d}" for i in range(MESH_BID_DAYS)]
+    t0 = time.perf_counter()
+    want = bidder.compute_day_ahead_bids_batch(dates)
+    t1 = time.perf_counter()
+    got = bidder.compute_day_ahead_bids_batch(
+        dates, mesh=_repeated_mesh(dev, MESH_BID_DAYS, axis="day"))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    worst = 0.0
+    for d in dates:
+        for t in range(48):
+            a, b = got[d][t]["4_WIND"]["p_cost"], want[d][t]["4_WIND"]["p_cost"]
+            check(len(a) == len(b), f"[bids-mesh] {d} hour {t}: curves differ in length")
+            for (pa, ca), (pb, cb) in zip(a, b):
+                worst = max(worst, abs(pa - pb) / max(1.0, abs(pb)),
+                            abs(ca - cb) / max(1.0, abs(cb)))
+    print(f"[bids-mesh] {MESH_BID_DAYS} days: one lane-axis solve {t1 - t0:.2f} s, over a "
+          f"{MESH_BID_DAYS}-entry mesh {t2 - t1:.2f} s; bids max rel diff {worst:.3e}")
+    check(list(got) == dates, "[bids-mesh] days out of order")
+    check(worst <= MESH_BID_RTOL, f"[bids-mesh] {worst:.3e} from the mesh-free day batch")
+
+
+def mlp_mesh(torch, dev):
+    """[mlp-mesh]: ``_train_mlp`` with each minibatch split over cuda:0
+    named four times, held to the unsplit training on the card."""
+    from dispatches_tpu_torch.workflow.surrogates import _train_mlp
+
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((512, 4))
+    y = np.sin(x @ np.array([[1.0], [-2.0], [0.5], [0.25]])) + 0.1
+    sizes = [4, 32, 32, 1]
+    t0 = time.perf_counter()
+    ref, ref_loss = _train_mlp(x, y, sizes, epochs=40, batch_size=64, device=dev)
+    t1 = time.perf_counter()
+    got, loss = _train_mlp(x, y, sizes, epochs=40, batch_size=64,
+                           mesh=_repeated_mesh(dev, MESH_ENTRIES))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    w = [np.concatenate([np.ravel(layer[k]) for layer in m.to_params() for k in ("W", "b")])
+         for m in (got, ref)]
+    w_rel = np.abs(w[0] - w[1]).max() / np.abs(w[1]).max()
+    print(f"[mlp-mesh] {sizes}, 40 epochs of 64-row minibatches: unsplit {t1 - t0:.2f} s, "
+          f"{MESH_ENTRIES} shards {t2 - t1:.2f} s; weights max rel diff {w_rel:.3e}, loss "
+          f"{loss:.6e} vs {ref_loss:.6e}")
+    check(np.isfinite(loss) and w_rel <= MESH_MLP_RTOL,
+          f"[mlp-mesh] weights {w_rel:.3e} from the unsplit training")
+
+
+def adaptive_serve(torch, dev, main_run):
+    """[adaptive]: phase 5's 366 requests through a service whose plan
+    arms the depth controller (inflight 2, inflight_max 6); the recorded
+    plan spans, replayed through a fresh controller, give the same depth
+    trajectory and decisions."""
+    from dispatches_tpu_torch.obs import trace
+    from dispatches_tpu_torch.obs.online import TimelineAccumulator
+    from dispatches_tpu_torch.plan import ExecutionPlan, PlanOptions
+    from dispatches_tpu_torch.plan.adaptive import InflightDepthController
+    from dispatches_tpu_torch.serve import ServeOptions, SolveService
+
+    nlp, lmps, cfs = main_run["nlp"], main_run["lmps"], main_run["cfs"]
+    plan = ExecutionPlan(PlanOptions(device=dev, inflight=ADAPTIVE_INFLIGHT,
+                                     inflight_max=ADAPTIVE_MAX))
+    svc = SolveService(ServeOptions(max_wait_ms=SERVE_WAIT_MS, plan=plan))
+    ctrl, trail = plan.controller, []
+    ingest = ctrl.ingest
+
+    def record(ev):
+        ingest(ev)
+        if ev["name"] == "plan.fence":
+            trail.append(ctrl.depth)
+
+    ctrl.ingest = record
+    trace.reset()
+    trace.enable(True)
+    t0 = time.perf_counter()
+    try:
+        hs = [svc.submit(nlp, _flagship_params(nlp, lmps, cfs, s)) for s in range(N_SCENARIOS)]
+        svc.flush_all()
+        torch.cuda.synchronize()
+        events = trace.events()
+    finally:
+        trace.enable(False)
+        trace.reset()
+    dt = time.perf_counter() - t0
+    check(all(h.result().status == "DONE" for h in hs), "[adaptive] a request failed")
+    spans = [e for e in events if e["name"] in TimelineAccumulator.SPAN_NAMES
+             and (e.get("args") or {}).get("plan") == plan.plan_id]
+    fresh = InflightDepthController(base=ADAPTIVE_INFLIGHT, max_inflight=ADAPTIVE_MAX,
+                                    plan=plan.plan_id, gauges=False)
+    replay = []
+    for e in spans:
+        fresh.ingest(e)
+        if e["name"] == "plan.fence":
+            replay.append(fresh.depth)
+    st = ctrl.acc.stalls()
+    print(f"[adaptive] {N_SCENARIOS} requests in {dt:.2f} s, {len(trail)} fences; depth "
+          f"trajectory {trail}; decisions {ctrl.decisions}; stalls (us) "
+          + ", ".join(f"{k} {v:.0f}" for k, v in st.items())
+          + f"; replay of {len(spans)} recorded spans: {replay == trail}, decisions "
+          f"{fresh.decisions}")
+    check(len(trail) > 0 and replay == trail and fresh.decisions == ctrl.decisions,
+          "[adaptive] the recorded spans replay to another depth trajectory")
+    check(all(1 <= x <= ADAPTIVE_MAX for x in trail), "[adaptive] depth left [1, inflight_max]")
+
+
+def profile_cards(torch, dev, main_run):
+    """[profile]: with ``OBS_PROFILE`` on, a card for every ``serve.``
+    program signature with peak bytes above 0, and the admission prior set
+    before the first dispatch completes.  Runs last: the flag is
+    process-wide."""
+    from dispatches_tpu_torch.obs import profile
+    from dispatches_tpu_torch.serve import ServeOptions, SolveService, admission
+
+    nlp, lmps, cfs = main_run["nlp"], main_run["lmps"], main_run["cfs"]
+    profile.enable(True)
+    profile.reset()
+    priors = []
+    observe = admission.ServiceTimeEstimate.observe_ms
+
+    def spy(self, ms):
+        if self.samples == 0:
+            priors.append((self.label, self.estimate_ms(), ms))
+        observe(self, ms)
+
+    admission.ServiceTimeEstimate.observe_ms = spy
+    try:
+        svc = SolveService(ServeOptions(max_wait_ms=SERVE_WAIT_MS, max_batch=64), device=dev)
+        hs = [svc.submit(nlp, _flagship_params(nlp, lmps, cfs, s % len(lmps)))
+              for s in range(100)]
+        svc.flush_all()
+        torch.cuda.synchronize()
+    finally:
+        admission.ServiceTimeEstimate.observe_ms = observe
+    check(all(h.result().status == "DONE" for h in hs), "[profile] a request failed")
+    cards = profile.cards_for("serve.")
+    per_bucket = {f"serve.{label}": (b.compiles,
+                                     sum(c["label"] == f"serve.{label}" for c in cards))
+                  for label, b in ((b.stats.label, b) for b in svc._buckets.values())}
+    print(f"[profile] {len(cards)} cards; bucket programs (signatures, cards) {per_bucket}: "
+          + "; ".join(f"{c['label']}#{c['count']} {c['shapes'][:2]} peak {c.get('peak_bytes')} B "
+                      f"flops {c.get('flops')} first call {c['first_call_ms']:.1f} ms"
+                      for c in cards)
+          + f"; admission prior at the first completed dispatch (label, prior ms, measured ms): "
+          f"{priors}; device memory sample {profile.sample_memory()}")
+    check(per_bucket and all(n == k > 0 for n, k in per_bucket.values()),
+          "[profile] a serve program signature has no card")
+    check(all((c.get("peak_bytes") or 0) > 0 and c["backend"] == "gpu" for c in cards),
+          "[profile] a card without peak bytes")
+    check(priors and all(p is not None for _, p, _ in priors),
+          "[profile] no admission prior before the first dispatch completed")
+    profile.enable(False)
+
+
+def phase_mesh(torch, dev):
+    """Phase 12, with the sweep kernels' counts set to 0 before and read
+    after: the mesh paths on cuda:0 (named several times), the adaptive
+    depth controller and the cost cards."""
+    import tempfile
+
+    from dispatches_tpu_torch.kernels import pdhg_sweep as ks
+
+    ks.avg_sweep.launches = 0
+    ks.halpern_sweep.launches = 0
+    t0 = time.perf_counter()
+    main_run = flagship(torch, dev)
+    main_run["ref"] = highs_objectives(torch, main_run["nlp"], main_run["lp"],
+                                       main_run["lmps"][:N_HIGHS], main_run["cfs"][:N_HIGHS])
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="phase12-") as tmp:
+        work = Path(tmp)
+        parts = (("mesh", lambda: mesh_solves(torch, dev, main_run)),
+                 ("dryrun", lambda: mesh_dryrun(torch, dev)),
+                 ("sweep-mesh", lambda: sweep_mesh(torch, dev, main_run, work)),
+                 ("bids-mesh", lambda: bids_mesh(torch, dev, work)),
+                 ("mlp-mesh", lambda: mlp_mesh(torch, dev)),
+                 ("adaptive", lambda: adaptive_serve(torch, dev, main_run)),
+                 ("profile", lambda: profile_cards(torch, dev, main_run)))
+        walls = []
+        for name, run in parts:
+            t_part = time.perf_counter()
+            run()
+            walls.append(f"{name} {time.perf_counter() - t_part:.1f}")
+    print(f"[phase12] {time.perf_counter() - t0:.1f} s ({', '.join(walls)} s); sweep kernel "
+          f"launches during it: halpern {ks.halpern_sweep.launches}, avg {ks.avg_sweep.launches}")
+    check(ks.halpern_sweep.launches > 0, "[phase12] the halpern kernel was never launched")
+
+
 # The whole run drives these groups of phases in child processes (this
 # script with a private flag), started after phase 3's kernel timings and
 # running beside phases 4, 5, 8 and 9 in the main process: every phase
@@ -3882,14 +4246,16 @@ def phase_designs(torch, dev, only=False, parts=DESIGN_PARTS):
 CHILD_FLAG = "--phase-child"
 CHILD_GROUPS = (("6",), ("7",), ("10", "salt-hx", "isp", "isp-init", "isp-analysis"),
                 ("10", "mp-eval", "usc-bid-track", "mp-usc"),
-                ("11",))
+                ("11",), ("12",))
 CHILD_THREADS = "2"        # BLAS and torch threads per child (8 host cores in all)
 WHOLE_RUN_S = 1140.0       # the run fails itself past this, inside the 1,200 s limit
 
 
 def whole_run_phase(torch, dev, phase, parts=()):
-    """Phase 6, 7, 10 or 11 (``parts`` of it) at the whole run's depth."""
-    if phase == "6":
+    """Phase 6, 7, 10, 11 (``parts`` of it) or 12 at the whole run's depth."""
+    if phase == "12":
+        phase_mesh(torch, dev)
+    elif phase == "6":
         phase_hydrogen(torch, dev, pem_batch_model(torch, dev))
     elif phase == "7":
         phase_double_loop(torch, dev)
@@ -3986,7 +4352,8 @@ def main():
              "10": lambda dev: phase_storage(torch, dev, only=True,
                                              parts=sys.argv[3:] or STORAGE_PARTS),
              "11": lambda dev: phase_designs(torch, dev, only=True,
-                                             parts=sys.argv[3:] or DESIGN_PARTS)}
+                                             parts=sys.argv[3:] or DESIGN_PARTS),
+             "12": lambda dev: phase_mesh(torch, dev)}
     part_names = {"10": STORAGE_PARTS, "11": DESIGN_PARTS}
     if sys.argv[1:2] == ["--only-phase"]:
         # a development run of one phase alone: no kernel build, no result

@@ -26,7 +26,8 @@ given numpy, ``kmeans_fit``, ``kmeans_fit_softdtw``,
 ``model_analysis``, ``MultiPeriodUscModel``, ``run_pricetaker_analysis``,
 ``MultiPeriodUsc``, the supercritical plant's ``solve_plant``, and the
 charge and discharge design studies' ``design_optimize`` and
-``run_design_study``) run on ``cuda`` unless the caller
+``run_design_study``, ``parallel.scenario_mesh`` and
+``entry.dryrun_multichip``) run on ``cuda`` unless the caller
 passes ``device="cpu"``;
 with no card and no ``device=`` they raise instead of carrying on quietly
 on the CPU.
@@ -63,7 +64,12 @@ with storage, its multiperiod price-taker and its double-loop participant
 (``case_studies/fossil``); and the charge and discharge storage design
 studies, the concrete TES (``models/concrete_tes.py``), the tube-side
 heat exchanger (``models/heat_exchanger_tube.py``) and the 692 MW
-supercritical plant with the TES (``case_studies/fossil/scpc_plant.py``).
+supercritical plant with the TES (``case_studies/fossil/scpc_plant.py``);
+and the rest of the execution layer: scenario meshes and sharding
+(``parallel/``), the plan's mesh placement, the adaptive in-flight depth
+controller (``plan/adaptive.py``), the multichip dry run, and the obs
+modules they read (``obs/online.py``, ``obs/timeline.py``,
+``obs/profile.py``).
 """
 
 import torch

@@ -51,9 +51,10 @@ REGISTERED_FLAGS = {
     "default 30)",
     "PLAN_INFLIGHT": "execution-plan dispatch-ahead window: max batches "
     "dispatched but not yet fenced (plan.PlanOptions.from_env; default 2)",
-    "PLAN_DEVICES": "execution-plan device count; > 1 needs the mesh, "
-    "not ported yet (plan.PlanOptions.from_env raises for it in "
-    "ExecutionPlan)",
+    "PLAN_DEVICES": "execution-plan device count: > 1 builds a "
+    "parallel.scenario_mesh of that many entries on the plan's device "
+    "(the first n visible cards on cuda) when no explicit mesh is given "
+    "(plan.PlanOptions.from_env)",
     "PLAN_MAX_RETRIES": "execution-plan full-batch retry budget before "
     "lane bisection (plan.PlanOptions.from_env; default 2)",
     "PLAN_RETRY_BACKOFF_MS": "execution-plan base backoff between batch "
@@ -62,9 +63,9 @@ REGISTERED_FLAGS = {
     "PLAN_SCHEDULE": "execution-plan fence order: 'fifo' or 'ready' "
     "(probe each ticket's CUDA event; FIFO when no probe) "
     "(plan.PlanOptions.from_env)",
-    "PLAN_INFLIGHT_MAX": "arms the adaptive in-flight depth controller "
-    "in the JAX package; not ported yet, so ExecutionPlan raises for it "
-    "(plan.PlanOptions.from_env)",
+    "PLAN_INFLIGHT_MAX": "arms the adaptive in-flight depth controller: "
+    "AIMD moves the dispatch window within [1, this bound] from live "
+    "stall attribution (plan.adaptive; plan.PlanOptions.from_env)",
     "PLAN_FENCE_TIMEOUT_MS": "execution-plan fence watchdog on the plan "
     "clock; a batch that exceeds it is retried/bisected "
     "(plan.PlanOptions.from_env; unset = unbounded fences)",
@@ -85,9 +86,10 @@ REGISTERED_FLAGS = {
     "OBS": "enable span/instant recording in the obs tracer (obs.trace)",
     "OBS_BUFFER": "obs tracer ring-buffer capacity in events "
     "(obs.trace; default 65536)",
-    "OBS_PROFILE": "AOT cost cards in the JAX package; not ported yet, so "
-    "a set value makes SolveService and run_sweep raise "
-    "NotImplementedError",
+    "OBS_PROFILE": "cost cards: the first call of each new argument "
+    "signature of a plan program records label, count, backend, shapes, "
+    "argument/output bytes, CUDA peak bytes and matmul flops "
+    "(obs.profile; read when a program is built)",
     "OBS_EXPORT_DIR": "continuous telemetry export in the JAX package; "
     "not ported yet, so a set value makes SolveService raise "
     "NotImplementedError",

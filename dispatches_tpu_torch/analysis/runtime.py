@@ -140,16 +140,26 @@ class CountedProgram:
     count: ``_graft_counter`` (a :class:`ProgramCounter` labelled
     ``label``) counts the distinct params signatures it has run."""
 
-    __slots__ = ("_fn", "_graft_counter")
+    __slots__ = ("_fn", "_graft_counter", "_profile")
 
     def __init__(self, fn, label: str):
+        from dispatches_tpu_torch.obs import profile
+
         self._fn = fn
         self._graft_counter = ProgramCounter(label)
+        # resolved at wrap time, as graft_jit resolves OBS_PROFILE
+        self._profile = profile.enabled()
 
     def __call__(self, params, *args, **kwargs):
         from dispatches_tpu_torch.plan.execution import _signature
 
-        self._graft_counter.observe(_signature((params,) + args))
+        c = self._graft_counter
+        if c.observe(_signature((params,) + args)) and self._profile:
+            from dispatches_tpu_torch.obs import profile
+
+            return profile.profiled_call(
+                lambda *a: self._fn(*a, **kwargs), c.label, c.count,
+                (params,) + args)
         return self._fn(params, *args, **kwargs)
 
 

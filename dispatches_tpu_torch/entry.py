@@ -5,8 +5,9 @@ repository's ``__graft_entry__.py``).
 ``entry(device=None)`` returns ``(fn, example_args)``: ``fn(batched)``
 solves the IPM (``IPMOptions(max_iter=60)``, float64, the KKT path chosen
 by ``kkt="auto"``) over the 8 LMP lanes of ``example_args`` and returns
-the per-lane objectives.  The multi-device dry run waits for the port's
-``parallel/`` layer.
+the per-lane objectives.  ``dryrun_multichip(n_devices, device=None)`` is the
+counterpart of the repository's multichip dry run: the same IPM over an
+``n_devices``-entry scenario mesh.
 """
 
 from __future__ import annotations
@@ -64,3 +65,33 @@ def entry(device=None):
         return solver(batched_params).obj
 
     return fn, (batched,)
+
+
+def dryrun_multichip(n_devices: int, device=None):
+    """Split the scenario batch over an ``n_devices``-entry mesh and run
+    one full solve (horizon 8, ``max_iter=60``), returning the per-lane
+    objectives.
+
+    2n+1 scenarios do not divide the mesh, so the pad/trim path runs.
+    The mesh takes the first ``n_devices`` visible cards when that many
+    are visible; with fewer (one H100), or on the CPU, its entries name
+    ``device`` (``cuda:0`` unless given) ``n_devices`` times — the
+    counterpart of the JAX dry run's virtual CPU devices."""
+    import torch
+
+    from dispatches_tpu_torch.parallel import Mesh, scenario_mesh, scenario_sharded_solver
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() >= n_devices:
+        mesh = scenario_mesh(n_devices, device=dev)
+    else:
+        mesh = Mesh([dev] * n_devices, axis_names=("scenario",))
+    nlp = _build_nlp(horizon=8)
+    # odd count: exercises the uneven-batch pad/trim path
+    n_scenarios = 2 * n_devices + 1
+    solve = scenario_sharded_solver(nlp, mesh, batched_keys=("lmp",),
+                                    max_iter=60)
+    objs = solve({"lmp": _lmp_batch(n_scenarios, 8)})
+    assert tuple(objs.shape) == (n_scenarios,)
+    assert bool(torch.isfinite(objs).all())
+    return objs

@@ -31,14 +31,6 @@ from dispatches_tpu_torch.core.stacked import StackedScenarioNLP
 from dispatches_tpu_torch.solvers.ipm import IPMOptions, make_ipm_solver
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "day-parallel bidding over a device mesh (mesh=) is not ported "
-            "yet (ROADMAP.md queue 1, item 7: parallel/sharding.py); pass "
-            "mesh=None to solve the day batch as one lane axis on one device")
-
-
 class _BidderBase:
     def __init__(
         self,
@@ -150,12 +142,13 @@ class _BidderBase:
         D days solve as ONE IPM call whose lane axis is the day (the
         scenario slab stays a vmap inside each lane).  The caller
         re-syncs realized state sequentially through the usual
-        ``update_*_model`` hooks (windowed re-sync).  ``mesh`` is not
-        ported (it raises).
+        ``update_*_model`` hooks (windowed re-sync).  ``mesh`` splits the
+        day axis over a device mesh: through an execution plan on that
+        mesh, each entry solves its contiguous block of days, and the
+        results are gathered in day order on the bidder's device.
 
         Returns ``{date: bids}`` with bids formatted exactly like
         ``compute_day_ahead_bids``."""
-        _no_mesh(mesh)
         blk = self.day_ahead_model
         H = self.day_ahead_horizon
         prices_days = np.stack([
@@ -211,7 +204,11 @@ class _BidderBase:
         batched = {"p": {**params["p"], "energy_price": prices_days,
                          **{k: np.asarray(ov, float) for k, ov in ov_keys.items()}},
                    "fixed": params["fixed"]}
-        res = vsolve(batched)
+        if mesh is None:
+            res = vsolve(batched)
+        else:
+            res = self._mesh_solve(vsolve, batched, mesh, len(dates),
+                                   {"energy_price", *ov_keys})
         xs = res.x
         out = {}
         for i, d in enumerate(dates):
@@ -224,6 +221,22 @@ class _BidderBase:
             out[d] = self._format_bids(blk, prices_days[i], powers,
                                        xs[i].detach().cpu().numpy(), H)
         return out
+
+    def _mesh_solve(self, vsolve, batched, mesh, n_days, day_keys):
+        """``vsolve(batched)`` with the day axis split over ``mesh``: the
+        ``day_keys`` params carry it, every other leaf goes whole to each
+        mesh entry."""
+        from dispatches_tpu_torch.plan import ExecutionPlan, PlanOptions
+
+        plan = ExecutionPlan(PlanOptions(mesh=mesh, donate=False,
+                                         device=self.device))
+        program = plan.program(vsolve, label=vsolve._graft_counter.label,
+                               donate_argnums=())
+        mask = {"p": {k: k in day_keys for k in batched["p"]},
+                "fixed": {k: False for k in batched["fixed"]}}
+        staged = plan.stage(batched, lanes=n_days, donate=False, batched=mask)
+        return plan.collect(plan.submit(program, (staged,), n_live=n_days,
+                                        lanes=n_days))
 
     def update_day_ahead_model(self, **profiles):
         self.bidding_model_object.update_model(self.day_ahead_model, **profiles)

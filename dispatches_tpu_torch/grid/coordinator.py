@@ -94,10 +94,8 @@ class DoubleLoopCoordinator:
         window of ``dates`` as one device batch, to be consumed by
         ``request_da_bids`` day by day.  Realized state still re-syncs
         sequentially through ``push_rt_dispatch``/``update_*_model`` at
-        window boundaries.  ``mesh`` is not ported (it raises)."""
-        from dispatches_tpu_torch.grid.bidder import _no_mesh
-
-        _no_mesh(mesh)
+        window boundaries.  ``mesh`` splits the day axis over a device
+        mesh (``compute_day_ahead_bids_batch``)."""
         fc = self.bidder.forecaster
         if hasattr(fc, "record_day_ahead_price") or hasattr(
             fc, "fetch_hourly_stats_from_prescient"

@@ -871,11 +871,9 @@ class MarketSimulator:
         realized-state re-sync stay sequential.  Day-parallel bids match
         the sequential loop's whenever the within-window feedback is
         state-neutral (static forecaster pools and day-boundary-neutral
-        realized state).  ``mesh`` is not ported (it raises).
+        realized state).  ``mesh`` splits each window's day axis over a
+        device mesh (``compute_day_ahead_bids_batch``).
         """
-        from dispatches_tpu_torch.grid.bidder import _no_mesh
-
-        _no_mesh(mesh)
         case = self.case
         start = pd.Timestamp(start_date)
         hour0 = int((start - case.start_timestamp).total_seconds() // 3600)

@@ -1,7 +1,8 @@
 """Observability of the port (``dispatches_tpu.obs`` counterpart, in
-part): the metrics registry, the span tracer and the P² streaming
-quantile.  The report, solver-log, profile, ledger, SLO, flight,
-timeline and export modules are not ported yet (``ROADMAP.md``)."""
+part): the metrics registry, the span tracer with its sinks, the
+streaming analytics (``online``), the pipeline timeline (``timeline``)
+and the cost cards (``profile``).  The report, solver-log, ledger, SLO,
+flight and export modules are not ported yet (``ROADMAP.md``)."""
 
 from dispatches_tpu_torch.obs.registry import (  # noqa: F401
     Counter,

@@ -34,12 +34,16 @@ __all__ = [
     "enabled",
     "enable",
     "span",
+    "current_span",
     "instant",
     "complete",
     "now_us",
     "events",
     "dropped",
     "reset",
+    "add_sink",
+    "remove_sink",
+    "set_memory_sampler",
     "export_chrome_trace",
     "fence",
     "to_chrome_events",
@@ -57,6 +61,42 @@ _DROPPED = 0
 _STACK: contextvars.ContextVar = contextvars.ContextVar(
     "dispatches_tpu_torch_obs_span_stack", default=()
 )
+
+# span-boundary hook (obs.profile installs its memory sampler here);
+# module-global so the Span hot path pays one attribute read when unset
+_SPAN_HOOK = None
+
+# streaming event sinks (obs.online's incremental timeline accumulator
+# subscribes here): each completed event is handed to every sink as it
+# is recorded, so consumers see spans the moment they retire instead of
+# re-scanning the ring.  Empty-list check on the hot path; sink
+# exceptions are swallowed (telemetry never breaks the traced op).
+_SINKS: List = []
+
+
+def add_sink(fn) -> None:
+    """Register ``fn(event_dict)`` to observe every recorded event."""
+    with _lock:
+        if fn not in _SINKS:
+            _SINKS.append(fn)
+
+
+def remove_sink(fn) -> None:
+    """Unregister a sink installed with :func:`add_sink` (idempotent)."""
+    with _lock:
+        try:
+            _SINKS.remove(fn)
+        except ValueError:
+            pass
+
+
+def set_memory_sampler(fn) -> None:
+    """Install ``fn`` to run at every span exit (None uninstalls).
+    Exceptions from the sampler are swallowed — telemetry never breaks
+    the traced operation."""
+    global _SPAN_HOOK
+    _SPAN_HOOK = fn
+
 
 def enabled() -> bool:
     """Whether spans/instants are recorded (``DISPATCHES_TPU_OBS``).
@@ -95,6 +135,13 @@ def _record(event: Dict) -> None:
         if len(buf) == buf.maxlen:
             _DROPPED += 1
         buf.append(event)
+        sinks = list(_SINKS) if _SINKS else None
+    if sinks is not None:  # outside the lock: sinks may touch telemetry
+        for fn in sinks:
+            try:
+                fn(event)
+            except Exception:
+                pass
 
 
 def _tensors(value):
@@ -175,6 +222,12 @@ class Span:
             "tid": threading.get_ident(),
             "args": args,
         })
+        hook = _SPAN_HOOK
+        if hook is not None:
+            try:
+                hook()
+            except Exception:
+                pass
         return False
 
 
@@ -204,6 +257,12 @@ def span(name: str, **args):
     if not enabled():
         return _NULL_SPAN
     return Span(name, args)
+
+
+def current_span() -> Optional[str]:
+    """Name of the innermost span open in this context, or None."""
+    stack = _STACK.get()
+    return stack[-1] if stack else None
 
 
 def instant(name: str, **args) -> None:

@@ -1,6 +1,7 @@
-"""The execution-plan layer of the port: one device, bounded
-dispatch-ahead batching, retries and lane bisection for every solve path
-(see :mod:`dispatches_tpu_torch.plan.execution`)."""
+"""The execution-plan layer of the port: mesh placement, bounded (or
+adaptive, :mod:`~dispatches_tpu_torch.plan.adaptive`) dispatch-ahead
+batching, retries and lane bisection for every solve path (see
+:mod:`dispatches_tpu_torch.plan.execution`)."""
 
 from dispatches_tpu_torch.plan.execution import (
     ExecutionPlan,

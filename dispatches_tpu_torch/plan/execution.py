@@ -1,14 +1,22 @@
 """``ExecutionPlan``: the one dispatch path for every solve batch
 (counterpart of ``dispatches_tpu/plan/execution.py``).
 
-One plan = one device plus one dispatch pipeline:
+One plan = one placement policy plus one dispatch pipeline:
 
-* **placement** — every staged leaf lands on ``PlanOptions.device``
-  (``cuda`` unless the caller asks for the CPU).  The JAX package's
-  scenario mesh (``mesh``, ``devices > 1``) and its adaptive in-flight
-  depth controller (``inflight_max``) are not ported yet: asking for
-  either raises ``NotImplementedError`` (``ROADMAP.md`` queue 1,
-  item 7).
+* **placement** — with no mesh every staged leaf lands on
+  ``PlanOptions.device`` (``cuda`` unless the caller asks for the CPU).
+  With a 1-D :class:`~dispatches_tpu_torch.parallel.sharding.Mesh`
+  (``mesh``, or ``devices > 1`` through ``parallel.scenario_mesh``) a
+  batch whose lane count divides the mesh is split into contiguous lane
+  shards, one per mesh entry, each staged on its entry's device;
+  replicated leaves go whole to every entry.  ``submit`` launches the
+  program on every shard before any fence, and the fence waits for
+  every shard's device and gathers the shards, in lane order, onto the
+  plan's device (``PlanOptions.device``, else the mesh's first entry).
+  Other lane counts are staged whole on the plan's device, and
+  ``stage(slot=)`` pins a whole batch on one mesh device, round-robin.
+  A mesh may name one device more than once; its shards then run one
+  after another on that device's stream.
 * **programs** — ``program(fn, ...)`` wraps a kernel that is already
   lane-batched (the port's solvers take a lane axis themselves, where
   the JAX package vmaps a per-scenario function).  ``vmap_axes`` is kept
@@ -33,6 +41,14 @@ One plan = one device plus one dispatch pipeline:
   probe (a CPU plan records no event).  Per-ticket results, recovery and
   the fence-time ``on_done`` contract (run exactly once, serialized,
   after the ticket completes) are the same in both modes.
+  ``PlanOptions.inflight_max`` arms the AIMD depth controller
+  (:mod:`dispatches_tpu_torch.plan.adaptive`), which moves the window
+  between 1 and that bound from live stall attribution under a
+  cost-card memory budget.
+* **cost cards** — with ``DISPATCHES_TPU_OBS_PROFILE`` on when a program
+  is built, the first call of each new argument signature records a
+  card (:mod:`dispatches_tpu_torch.obs.profile`); with it off the
+  program's call path is the plain one.
 
 The fence path holds the window lock only to pop the chosen ticket: the
 device wait, recovery and ``on_done`` run outside it, so a fence
@@ -85,9 +101,6 @@ _BACKOFF_CAP_MS = 250.0
 #: long (virtual clocks advance the full duration instead)
 _HANG_SLEEP_CAP_S = 2.0
 
-_NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1, item 7: the "
-               "execution layer's mesh and adaptive depth controller)")
-
 
 @dataclass(frozen=True)
 class PlanOptions:
@@ -96,11 +109,12 @@ class PlanOptions:
 
     #: dispatch-ahead window: max batches dispatched but not yet fenced.
     inflight: int = 2
-    #: scenario-mesh device count in the JAX package; > 1 raises here.
+    #: build a ``parallel.scenario_mesh(devices)`` on ``device`` when no
+    #: explicit mesh is given (None/1 = single-device placement).
     devices: Optional[int] = None
-    #: explicit device mesh in the JAX package; raises here.
+    #: explicit 1-D device mesh; wins over ``devices``.
     mesh: Optional[object] = None
-    #: mesh axis name (kept for the JAX package's signature).
+    #: mesh axis the batch lane dimension splits over.
     axis: str = "scenario"
     #: default donation policy for ``program()``.
     donate: bool = True
@@ -111,15 +125,20 @@ class PlanOptions:
     retry_backoff_ms: float = 5.0
     #: fence order: ``"fifo"`` or ``"ready"``.
     schedule: str = "fifo"
-    #: the JAX package's adaptive depth controller bound; raises here.
+    #: arms the adaptive in-flight depth controller: the window starts
+    #: at ``inflight`` and AIMD moves it within [1, inflight_max] from
+    #: live stall attribution.  None = fixed depth (the default).
     inflight_max: Optional[int] = None
-    #: memory budget of that controller (kept for the signature).
+    #: cost-card memory budget for the depth controller: growth stops
+    #: when ``peak_bytes × depth`` would exceed it (None = no budget;
+    #: needs ``obs.profile`` enabled to bind).
     mem_budget_bytes: Optional[int] = None
     #: fence watchdog: bound every blocking fence to this many ms of the
     #: plan's injectable clock (None = unbounded).
     fence_timeout_ms: Optional[float] = None
-    #: where staged batches live: ``cuda`` unless given (the port's
-    #: device rule, through ``resolve_device``).
+    #: where staged batches live and sharded results gather: ``cuda``
+    #: unless given (the port's device rule, through ``resolve_device``);
+    #: with a mesh and no device, the mesh's first entry.
     device: Optional[object] = None
 
     def __post_init__(self):
@@ -189,9 +208,48 @@ class PlanError(RuntimeError):
         super().__init__(msg)
 
 
+class _Sharded:
+    """One staged tree split into contiguous lane shards: ``parts[i]``
+    lives on ``devices[i]`` (the mesh's entries, in lane order)."""
+
+    __slots__ = ("parts", "devices")
+
+    def __init__(self, parts: List, devices: List):
+        self.parts = parts
+        self.devices = devices
+
+
+def _unshard(tree):
+    """``tree`` with each sharded value replaced by its list of shards."""
+    if isinstance(tree, _Sharded):
+        return list(tree.parts)
+    if isinstance(tree, tuple):
+        return tuple(_unshard(a) for a in tree)
+    return tree
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``dev`` with a CUDA index filled in (``cuda`` → ``cuda:<current>``),
+    as tensors report their device."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _to_device(tree, dev):
+    return tree_map(
+        lambda a: a.to(dev) if isinstance(a, torch.Tensor) else a, tree)
+
+
 def _signature(args) -> Tuple:
     """What a jit cache would key a call on: each leaf's shape and dtype
-    (Python scalars by type)."""
+    (Python scalars by type).  A sharded argument keys on its shard
+    count and its first shard — one program per lane count, as a mesh
+    placement compiles once per lane count."""
+    if any(isinstance(a, _Sharded) for a in args):
+        k = next(len(a.parts) for a in args if isinstance(a, _Sharded))
+        return ("shards", k, _signature(tuple(
+            a.parts[0] if isinstance(a, _Sharded) else a for a in args)))
     sig = []
     for leaf in tree_leaves(args):
         if isinstance(leaf, torch.Tensor):
@@ -210,20 +268,51 @@ class PlanProgram:
     programs feeding a submit, :meth:`ExecutionPlan.run_inline`)."""
 
     __slots__ = ("plan", "label", "donate_argnums", "vmap_axes", "_fn",
-                 "_counter")
+                 "_counter", "_run")
 
     def __init__(self, plan: "ExecutionPlan", fn: Callable, *, label: str,
                  vmap_axes=None, donate_argnums: Sequence[int] = ()):
+        from dispatches_tpu_torch.obs import profile
+
         self.plan = plan
         self.label = label
         self.donate_argnums = tuple(donate_argnums)
         self.vmap_axes = vmap_axes
         self._fn = fn
         self._counter = ProgramCounter(label)
+        # resolved once, at build time: with profiling off the call path
+        # is the plain one and carries no new host work
+        self._run = self._run_profiled if profile.enabled() else self._run_plain
 
-    def _run(self, *args):
+    def _call(self, *args):
+        """The program on ``args``; a sharded call runs every shard,
+        each on its own device, and returns the outputs still sharded."""
+        if not any(isinstance(a, _Sharded) for a in args):
+            return self._fn(*args)
+        devices = next(a.devices for a in args if isinstance(a, _Sharded))
+        outs = []
+        for i, dev in enumerate(devices):
+            shard_args = tuple(a.parts[i] if isinstance(a, _Sharded)
+                               else _to_device(a, dev) for a in args)
+            if dev.type == "cuda":
+                with torch.cuda.device(dev):
+                    outs.append(self._fn(*shard_args))
+            else:
+                outs.append(self._fn(*shard_args))
+        return _Sharded(outs, list(devices))
+
+    def _run_plain(self, *args):
         self._counter.observe(_signature(args))
-        return self._fn(*args)
+        return self._call(*args)
+
+    def _run_profiled(self, *args):
+        if self._counter.observe(_signature(args)):
+            from dispatches_tpu_torch.obs import profile
+
+            return profile.profiled_call(self._call, self.label,
+                                         self._counter.count, args,
+                                         view=_unshard)
+        return self._call(*args)
 
     @property
     def donates(self) -> bool:
@@ -244,7 +333,7 @@ class PlanTicket:
     __slots__ = ("label", "lanes", "n_live", "seq", "request_ids",
                  "result", "error", "_raw", "_exc", "_restage",
                  "_program", "_done", "_on_done", "_t_dispatch_us",
-                 "_fencing", "_event", "_marker")
+                 "_fencing", "_event", "_markers")
 
     def __init__(self, label: str, lanes: int, n_live: int, on_done,
                  seq: int = 0, request_ids: Optional[List[int]] = None):
@@ -266,9 +355,10 @@ class PlanTicket:
         # concurrent collector parks on _event instead of re-fencing
         self._fencing = False
         self._event = threading.Event()
-        # completion probe recorded after the program (a CUDA event; None
-        # on a CPU plan, whose programs have finished when they return)
-        self._marker = None
+        # completion probes recorded after the program: one CUDA event per
+        # device the batch ran on (empty on the CPU, whose programs have
+        # finished when they return)
+        self._markers = ()
 
     def done(self) -> bool:
         return self._done
@@ -287,16 +377,15 @@ def _stack_leaves(leaves: Sequence) -> Any:
 
 def _ticket_ready(ticket: PlanTicket) -> Optional[bool]:
     """Non-blocking readiness probe for one dispatched ticket: True when
-    its marker reports complete (a dispatch-time exception also counts),
-    False while the device still works, None when there is no probe —
-    the scheduler treats None as "fall back to FIFO"."""
+    every marker reports complete (a dispatch-time exception also
+    counts), False while a device still works, None when there is no
+    probe — the scheduler treats None as "fall back to FIFO"."""
     if ticket._exc is not None:
         return True
-    marker = ticket._marker
-    if marker is None:
+    if not ticket._markers:
         return None
     try:
-        return bool(marker.query())
+        return all(bool(m.query()) for m in ticket._markers)
     except Exception:  # noqa: BLE001 — the probe must never raise
         return None
 
@@ -319,9 +408,16 @@ def _nan_like_lane(lane) -> Any:
 _plan_ids = itertools.count(1)
 
 
+def _gather(sharded: _Sharded, device):
+    """The shards' outputs joined in lane order on ``device`` (every leaf
+    of a lane-batched program's output carries the lane axis)."""
+    return tree_map(lambda *parts: torch.cat([t.to(device) for t in parts]),
+                    *sharded.parts)
+
+
 class ExecutionPlan:
-    """Maps a stream of solve batches onto one device with a bounded
-    dispatch-ahead pipeline (module docstring).
+    """Maps a stream of solve batches onto a mesh placement with a
+    bounded dispatch-ahead pipeline (module docstring).
 
     Typical flow::
 
@@ -336,14 +432,20 @@ class ExecutionPlan:
     def __init__(self, options: Optional[PlanOptions] = None, *,
                  clock: Callable[[], float] = time.monotonic):
         self.options = options if options is not None else PlanOptions.from_env()
-        if self.options.mesh is not None or (self.options.devices or 0) > 1:
-            raise NotImplementedError(f"a scenario mesh {_NOT_PORTED}")
-        if self.options.inflight_max is not None:
-            raise NotImplementedError(
-                f"PlanOptions.inflight_max (the adaptive depth controller) {_NOT_PORTED}")
-        self.device = resolve_device(self.options.device)
         # the injectable clock bounds the fence watchdog
         self._clock = clock
+        mesh = self.options.mesh
+        if mesh is None and (self.options.devices or 0) > 1:
+            # lazy import: parallel.sharding is a plan caller
+            from dispatches_tpu_torch.parallel.sharding import scenario_mesh
+
+            mesh = scenario_mesh(self.options.devices, axis=self.options.axis,
+                                 device=self.options.device)
+        self.mesh = mesh
+        if mesh is not None and self.options.device is None:
+            self.device = mesh.devices[0]
+        else:
+            self.device = resolve_device(self.options.device)
         self.plan_id = next(_plan_ids)
         self._seq = itertools.count(1)
         self._fence_seq = itertools.count(1)
@@ -354,6 +456,17 @@ class ExecutionPlan:
         # fence order guard: one fence retires at a time.  Reentrant: an
         # on_done that re-submits may have to fence the overflow itself.
         self._fence_lock = sanitized_lock("plan.fence", reentrant=True)
+        self._ctrl = None
+        if self.options.inflight_max is not None:
+            from dispatches_tpu_torch.plan.adaptive import InflightDepthController
+
+            self._ctrl = InflightDepthController(
+                base=max(int(self.options.inflight), 1),
+                max_inflight=int(self.options.inflight_max),
+                plan=self.plan_id,
+                mem_budget_bytes=self.options.mem_budget_bytes,
+                peak_bytes_fn=self._peak_bytes)
+        self._labels: set = set()
         self._gauge = obs_registry.gauge(
             "plan.inflight",
             "execution-plan batches dispatched but not yet fenced")
@@ -374,9 +487,50 @@ class ExecutionPlan:
         return len(self._window)
 
     @property
+    def controller(self):
+        """The adaptive depth controller, or None (fixed window)."""
+        return self._ctrl
+
+    @property
     def inflight_limit(self) -> int:
-        """The dispatch-window bound."""
+        """The current dispatch-window bound (adaptive when the depth
+        controller is armed, ``options.inflight`` otherwise)."""
+        if self._ctrl is not None:
+            return max(int(self._ctrl.depth), 1)
         return max(int(self.options.inflight), 1)
+
+    def _peak_bytes(self) -> Optional[float]:
+        """Largest cost-card peak_bytes across programs this plan has
+        dispatched — the depth controller's per-slot memory model.  None
+        when profiling is off or no card carries one."""
+        from dispatches_tpu_torch.obs import profile
+
+        if not profile.enabled():
+            return None
+        peaks = [c.get("peak_bytes") or 0 for label in tuple(self._labels)
+                 for c in profile.cards_for(label)]
+        return float(max(peaks)) if peaks else None
+
+    def _axis_name(self) -> str:
+        names = self.mesh.axis_names
+        return self.options.axis if self.options.axis in names else names[0]
+
+    def _mesh_dim(self) -> int:
+        return int(self.mesh.shape[self._axis_name()])
+
+    def sharding_for(self, lanes: int):
+        """The mesh's devices, one lane shard each, when ``lanes``
+        divides the mesh; None (single-device placement) otherwise —
+        deterministic per lane count, so the one-program-per-(program,
+        lane-count) accounting is unchanged."""
+        if self.mesh is not None and lanes % self._mesh_dim() == 0:
+            return list(self.mesh.devices.flat)
+        return None
+
+    def _slot_device(self, slot: int):
+        """Round-robin mesh device for a ``stage(slot=...)`` batch."""
+        devs = list(self.mesh.devices.flat)
+        return devs[int(slot) % len(devs)]
 
     def lanes_for(self, n_live: int, max_batch: int) -> int:
         """Shape-stable lane count from the serve bucket menu."""
@@ -384,14 +538,33 @@ class ExecutionPlan:
 
         return pad_lanes(n_live, max_batch)
 
-    def _marker(self):
-        """A completion probe for the work queued so far: a CUDA event
-        recorded on the device's current stream, or None on the CPU."""
-        if self.device.type != "cuda":
+    def _marker(self, device=None):
+        """A completion probe for the work queued so far on ``device``
+        (the plan's device by default): a CUDA event recorded on its
+        current stream, or None on the CPU."""
+        dev = self.device if device is None else device
+        if dev.type != "cuda":
             return None
         event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
+        event.record(torch.cuda.current_stream(dev))
         return event
+
+    def _markers(self, value) -> Tuple:
+        """Completion probes for a dispatched batch: the plan device's
+        probe, or — for a sharded batch, or one pinned on another mesh
+        device — one per CUDA device that holds a tensor of it."""
+        if isinstance(value, _Sharded):
+            leaves = [t for part in value.parts for t in tree_leaves(part)]
+            devices = {d for d in value.devices if d.type == "cuda"}
+        else:
+            leaves = tree_leaves(value)
+            devices = set()
+        devices |= {t.device for t in leaves
+                    if isinstance(t, torch.Tensor) and t.is_cuda}
+        if not devices or devices == {_indexed(self.device)}:
+            marker = self._marker()
+            return () if marker is None else (marker,)
+        return tuple(self._marker(d) for d in sorted(devices, key=lambda d: d.index or 0))
 
     # -- staging -----------------------------------------------------------
 
@@ -404,31 +577,75 @@ class ExecutionPlan:
             trees.extend([trees[-1]] * (lanes - len(trees)))
         return tree_map(lambda *ls: _stack_leaves(ls), *trees)
 
-    def stage(self, tree, *, lanes: int, donate: bool = True):
-        """Place one batched tree on the plan's device.
+    def stage(self, tree, *, lanes: int, donate: bool = True, batched=True,
+              slot: Optional[int] = None):
+        """Place one batched tree for dispatch.
 
-        Host leaves are copied to the device; with ``donate`` (the
-        default) every staged leaf is plan-owned: a tensor the caller
-        already holds on the device is cloned, so a program that updates
-        its inputs in place can never touch a caller's buffer.  (The JAX
-        package's ``batched``/``slot`` placement arguments belong to its
-        mesh, which is not ported.)"""
+        ``batched`` is True (every leaf carries the lane axis), False
+        (fully replicated), or a matching tree of bools for mixed trees
+        (the sweep's swept-vs-default split); it decides which leaves a
+        mesh placement splits into lane shards and which go whole to
+        every shard.  Host leaves are copied to the device; with
+        ``donate`` (the default) every staged leaf is plan-owned: a
+        tensor the caller already holds on the device is cloned, so a
+        program that updates its inputs in place can never touch a
+        caller's buffer.
+
+        ``slot`` (with a mesh) pins the whole batch on ONE mesh device,
+        round-robin by slot index, instead of splitting lanes across the
+        mesh."""
         tracing = obs_trace.enabled()
-        t0_us = obs_trace.now_us() if tracing else 0.0
+        stamp = tracing or self._ctrl is not None
+        t0_us = obs_trace.now_us() if stamp else 0.0
         if _faults.armed():
             _faults.check("plan.stage")
+        shards = None
         dev = self.device
+        if self.mesh is not None:
+            if slot is not None:
+                dev = self._slot_device(slot)
+            else:
+                shards = self.sharding_for(lanes)
 
-        def place(leaf):
+        def place(leaf, d):
             if isinstance(leaf, torch.Tensor):
-                t = leaf.to(dev)
+                t = leaf.to(d)
                 return t.clone() if donate and t is leaf else t
-            return torch.tensor(np.asarray(leaf), device=dev)
+            return torch.tensor(np.asarray(leaf), device=d)
 
-        staged = tree_map(place, tree)
-        if tracing:
-            obs_trace.complete("plan.stage", t0_us, obs_trace.now_us() - t0_us,
-                               plan=self.plan_id, lanes=lanes)
+        def shard(leaf, is_batched, i):
+            d = shards[i]
+            if not is_batched:
+                return place(leaf, d)
+            c = lanes // len(shards)
+            if isinstance(leaf, torch.Tensor):
+                # a slice is a view of the caller's tensor: copy it when
+                # it stays on the caller's device and is donated
+                t = leaf[i * c:(i + 1) * c].to(d)
+                return t.clone() if donate and t.device == leaf.device else t
+            return torch.tensor(np.asarray(leaf)[i * c:(i + 1) * c], device=d)
+
+        if shards is None:
+            staged = tree_map(lambda leaf: place(leaf, dev), tree)
+        elif batched is True or batched is False:
+            staged = _Sharded(
+                [tree_map(lambda leaf, _i=i: shard(leaf, batched, _i), tree)
+                 for i in range(len(shards))], shards)
+        else:
+            staged = _Sharded(
+                [tree_map(lambda leaf, b, _i=i: shard(leaf, bool(b), _i),
+                          tree, batched) for i in range(len(shards))], shards)
+        if stamp:
+            # host staging is the wall time dispatch-ahead exists to hide
+            end_us = obs_trace.now_us()
+            if tracing:
+                obs_trace.complete("plan.stage", t0_us, end_us - t0_us,
+                                   plan=self.plan_id, lanes=lanes)
+            if self._ctrl is not None:
+                self._ctrl.ingest({
+                    "name": "plan.stage", "ph": "X", "ts": t0_us,
+                    "dur": end_us - t0_us,
+                    "args": {"plan": self.plan_id, "lanes": lanes}})
         return staged
 
     # -- programs ----------------------------------------------------------
@@ -482,13 +699,16 @@ class ExecutionPlan:
         Without it a failed batch carries a :class:`PlanError` covering
         every lane and ``collect()`` raises."""
         tracing = obs_trace.enabled()
+        ctrl = self._ctrl
+        stamp = tracing or ctrl is not None
         # the program runs OUTSIDE the window lock: a second submitter
-        # (or a collector probing the window) must not wait on it
+        # (or a collector probing the window) must not wait on it.  A
+        # sharded batch launches every shard here, before any fence.
         ticket = PlanTicket(program.label, lanes, n_live, on_done,
                             request_ids=request_ids)
         ticket._program = program
         ticket._restage = restage
-        ticket._t_dispatch_us = obs_trace.now_us() if tracing else 0.0
+        ticket._t_dispatch_us = obs_trace.now_us() if stamp else 0.0
         try:
             if _faults.armed():
                 _faults.check("plan.submit", label=program.label,
@@ -496,25 +716,33 @@ class ExecutionPlan:
                 _faults.check("solver", label=program.label,
                               request_ids=request_ids)
             ticket._raw = program._run(*args)
-            ticket._marker = self._marker()
+            ticket._markers = self._markers(ticket._raw)
         except Exception as exc:  # noqa: BLE001 — recovery at fence
             ticket._exc = exc
-        end_us = obs_trace.now_us() if tracing else 0.0
+        end_us = obs_trace.now_us() if stamp else 0.0
         with self._lock:
             # seq is assigned with the append, under the same lock, so
             # window order IS seq order
             ticket.seq = next(self._seq)
             self._window.append(ticket)
             inflight = len(self._window)
-        if tracing:
+        if stamp:
             args_kw = dict(plan=self.plan_id, seq=ticket.seq,
                            label=ticket.label, lanes=lanes,
                            live=n_live, inflight=inflight)
             if request_ids is not None:
                 args_kw["request_ids"] = list(request_ids)
-            obs_trace.complete("plan.submit", ticket._t_dispatch_us,
-                               end_us - ticket._t_dispatch_us, **args_kw)
+            if tracing:
+                obs_trace.complete("plan.submit", ticket._t_dispatch_us,
+                                   end_us - ticket._t_dispatch_us, **args_kw)
+            if ctrl is not None:
+                ctrl.ingest({
+                    "name": "plan.submit", "ph": "X",
+                    "ts": ticket._t_dispatch_us,
+                    "dur": end_us - ticket._t_dispatch_us,
+                    "args": args_kw})
         self._obs_batches.inc(label=program.label)
+        self._labels.add(program.label)
         self._gauge.set(float(inflight))
         # fence window overflow OUTSIDE the dispatch lock
         self._trim_window()
@@ -605,7 +833,9 @@ class ExecutionPlan:
             inflight_after = len(self._window)
             self._gauge.set(float(inflight_after))
         tracing = obs_trace.enabled()
-        t_fence_us = obs_trace.now_us() if tracing else 0.0
+        ctrl = self._ctrl
+        stamp = tracing or ctrl is not None
+        t_fence_us = obs_trace.now_us() if stamp else 0.0
         try:
             try:
                 if ticket._exc is not None:
@@ -618,23 +848,31 @@ class ExecutionPlan:
             except Exception as exc:  # noqa: BLE001 — the failure domain
                 self._recover(ticket, exc)
             ticket._raw = None
-            ticket._marker = None
+            ticket._markers = ()
             ticket._done = True
-            if tracing:
+            if stamp:
                 end_us = obs_trace.now_us()
                 order = next(self._fence_seq)
-                obs_trace.complete("plan.fence", t_fence_us,
-                                   end_us - t_fence_us, plan=self.plan_id,
-                                   seq=ticket.seq, label=ticket.label,
-                                   lanes=ticket.lanes,
-                                   inflight=inflight_after, order=order)
-                args_kw = dict(plan=self.plan_id, seq=ticket.seq,
-                               label=ticket.label, lanes=ticket.lanes,
-                               live=ticket.n_live, inflight=inflight_after)
-                if ticket.request_ids is not None:
-                    args_kw["request_ids"] = list(ticket.request_ids)
-                obs_trace.complete("plan.dispatch", ticket._t_dispatch_us,
-                                   end_us - ticket._t_dispatch_us, **args_kw)
+                # ``order`` is the retirement rank — diffing it against
+                # ``seq`` shows out-of-order fences
+                fence_kw = dict(plan=self.plan_id, seq=ticket.seq,
+                                label=ticket.label, lanes=ticket.lanes,
+                                inflight=inflight_after, order=order)
+                if tracing:
+                    obs_trace.complete("plan.fence", t_fence_us,
+                                       end_us - t_fence_us, **fence_kw)
+                    args_kw = dict(plan=self.plan_id, seq=ticket.seq,
+                                   label=ticket.label, lanes=ticket.lanes,
+                                   live=ticket.n_live, inflight=inflight_after)
+                    if ticket.request_ids is not None:
+                        args_kw["request_ids"] = list(ticket.request_ids)
+                    obs_trace.complete("plan.dispatch", ticket._t_dispatch_us,
+                                       end_us - ticket._t_dispatch_us, **args_kw)
+                if ctrl is not None:
+                    ctrl.ingest({
+                        "name": "plan.fence", "ph": "X",
+                        "ts": t_fence_us, "dur": end_us - t_fence_us,
+                        "args": fence_kw})
             if ticket._on_done is not None:
                 ticket._on_done(ticket)
         finally:
@@ -663,9 +901,10 @@ class ExecutionPlan:
                     self._hang_escape(ticket)
         if timeout_s is not None:
             self._watch_fence(ticket, timeout_s)
-        if ticket._marker is not None:
-            ticket._marker.synchronize()
-        return ticket._raw
+        for marker in ticket._markers:  # every shard's device
+            marker.synchronize()
+        raw = ticket._raw
+        return _gather(raw, self.device) if isinstance(raw, _Sharded) else raw
 
     def _advance_clock(self, seconds: float) -> None:
         """Consume ``seconds`` from the injectable clock: virtual clocks
@@ -693,6 +932,11 @@ class ExecutionPlan:
             time.sleep(min(timeout_s / 20.0, 0.001))
 
     def _hang_escape(self, ticket: PlanTicket) -> None:
+        """A fence exceeded its budget: shrink the dispatch window now
+        (a hang is maximal congestion) and raise the hang into the
+        failure domain."""
+        if self._ctrl is not None:
+            self._ctrl.on_backoff()
         raise PlanError(ticket.label, ticket.seq, kind="hang",
                         guilty=(), attempts=0)
 
@@ -708,10 +952,9 @@ class ExecutionPlan:
             for site in ("plan.submit", "solver", "plan.fence"):
                 _faults.check(site, label=ticket.label, request_ids=req_ids)
         out = ticket._program._run(*args)
-        marker = self._marker()
-        if marker is not None:
+        for marker in self._markers(out):
             marker.synchronize()
-        return out
+        return _gather(out, self.device) if isinstance(out, _Sharded) else out
 
     def _recover(self, ticket: PlanTicket, exc: BaseException) -> None:
         """Contain one failed batch: full retries with capped exponential
@@ -726,6 +969,9 @@ class ExecutionPlan:
                 attempts=0, cause=exc, kind=kind)
             return
         _faults.note_recovered(exc)
+        if self._ctrl is not None:
+            # recovery backoff is congestion: shrink the window now
+            self._ctrl.on_backoff()
         indices = list(range(ticket.n_live))
         backoff_ms = max(float(self.options.retry_backoff_ms), 0.0)
         attempts = 0

@@ -64,10 +64,14 @@ re-accept link) via ``recover_nlp``/``recover_base_solver`` into
 ``recovered_handles``.  ``drain()`` writes a final snapshot and the
 clean-shutdown marker.  Disarmed, the service holds no journal object.
 
-Not ported yet, and raising ``NotImplementedError`` when asked for: a
-device mesh (``ROADMAP.md`` item 7), and continuous export, the flight
-recorder and cost cards (``DISPATCHES_TPU_OBS_EXPORT_DIR``,
-``DISPATCHES_TPU_OBS_FLIGHT_DIR``, ``DISPATCHES_TPU_OBS_PROFILE``; item 12).
+``ServeOptions.mesh`` goes to the plan: batches whose lane count divides
+the mesh run as lane shards, one per mesh entry.  With
+``DISPATCHES_TPU_OBS_PROFILE`` on, each bucket program's first call of a
+lane count records a cost card, which seeds the admission estimate
+before the first dispatch completes.  Not ported yet, and raising
+``NotImplementedError`` when asked for: continuous export and the flight
+recorder (``DISPATCHES_TPU_OBS_EXPORT_DIR``,
+``DISPATCHES_TPU_OBS_FLIGHT_DIR``; ``ROADMAP.md`` item 12).
 """
 
 from __future__ import annotations
@@ -161,7 +165,11 @@ class ServeOptions:
     warm_start: bool = True    # feed cached solutions back as starts
     warm_cache_size: int = 512
     latency_window: int = 4096
-    #: device mesh in the JAX package; not ported (the plan raises)
+    #: optional 1-D device mesh (``parallel.sharding.scenario_mesh``):
+    #: batches whose lane count divides the mesh are dispatched as lane
+    #: shards, one per mesh entry; other batches stay whole.  Lane counts
+    #: map to one placement each, so the one-program-per-(bucket,
+    #: lane-count) accounting is unchanged.
     mesh: Optional[object] = None
     #: caller-owned :class:`ExecutionPlan`; None builds one from
     #: ``PlanOptions.from_env()`` on the service's device
@@ -460,8 +468,7 @@ def _check_not_deferred() -> None:
     """The service options whose modules are not ported raise instead of
     doing nothing."""
     for flag, what in (("OBS_EXPORT_DIR", "continuous telemetry export (obs/export.py)"),
-                       ("OBS_FLIGHT_DIR", "the flight recorder (obs/flight.py)"),
-                       ("OBS_PROFILE", "cost cards (obs/profile.py)")):
+                       ("OBS_FLIGHT_DIR", "the flight recorder (obs/flight.py)")):
         if os.environ.get(flag_name(flag), ""):
             raise NotImplementedError(
                 f"DISPATCHES_TPU_{flag} arms {what}, which is not ported yet "
@@ -1342,8 +1349,24 @@ class SolveService:
                 "recovery": self.recovery,
             },
             "buckets": buckets,
-            "cost_cards": {},
+            "cost_cards": self._cost_cards(),
         }
+
+    def _cost_cards(self) -> Dict:
+        """Per-bucket cost cards (the newest of each), present only when
+        profiling is enabled."""
+        cost_cards: Dict = {}
+        try:
+            from dispatches_tpu_torch.obs import profile
+
+            if profile.enabled():
+                for b in self._buckets.values():
+                    cards = profile.cards_for(f"serve.{b.stats.label}")
+                    if cards:
+                        cost_cards[b.stats.label] = cards[-1]
+        except Exception:
+            pass
+        return cost_cards
 
     def _warm_start_metrics(self) -> Dict:
         """hits = exact (ipm LRU + pdlp fingerprint), predicted =

@@ -5,24 +5,24 @@ Where the reference runs one solver subprocess per design point from
 shell loops, here the whole sweep is planned into shape-stable chunks
 sized to the serve layer's power-of-two lane menu
 (``serve.bucket.pad_lanes``, so a chunk program runs one signature per
-lane width across chunks) and executed through one of two backends
+lane width across chunks) and executed through one of three backends
 behind the same spec:
 
 * ``direct`` — each chunk staged and dispatched through an
-  :class:`~dispatches_tpu_torch.plan.ExecutionPlan` program.  The port's
-  solvers batch lanes themselves (a params leaf with one leading axis
-  more than its default is the lane axis), so the program is the solver
-  itself where the JAX package vmaps a per-scenario one;
+  :class:`~dispatches_tpu_torch.plan.ExecutionPlan` program (mesh
+  placement when the plan carries one).  The port's solvers batch lanes
+  themselves (a params leaf with one leading axis more than its default
+  is the lane axis), so the program is the solver itself where the JAX
+  package vmaps a per-scenario one;
+* ``mesh`` — ``parallel.scenario_sharded_solver`` over a device mesh
+  (``mesh=``, else ``parallel.scenario_mesh()`` on the sweep's device);
 * ``serve`` — per-point requests through a
   :class:`~dispatches_tpu_torch.serve.SolveService` (shared with live
   traffic, or a private warm-start-free instance).
 
-The JAX package's third backend, ``mesh`` (a scenario-sharded solver over
-a device mesh), is not ported: asking for it, or passing ``mesh=``,
-raises ``NotImplementedError`` (``ROADMAP.md`` queue 1, item 7).  So do
-the observability flags whose modules are not ported
-(``DISPATCHES_TPU_OBS_FLIGHT_DIR``, ``_OBS_PROFILE``, ``_OBS_LEDGER_DIR``;
-item 12), before the first chunk runs.
+The observability flags whose modules are not ported yet
+(``DISPATCHES_TPU_OBS_FLIGHT_DIR``, ``_OBS_LEDGER_DIR``; ``ROADMAP.md``
+item 12) raise ``NotImplementedError`` before the first chunk runs.
 
 Device: a sweep runs on ``device`` (``cuda`` unless the caller passes
 ``device="cpu"``); a caller-owned ``plan=`` or ``service=`` brings its
@@ -70,10 +70,6 @@ from dispatches_tpu_torch.utils.tree import tree_map
 
 __all__ = ["SweepOptions", "run_sweep"]
 
-_NO_MESH = ("the sweep engine's mesh backend (and mesh=) is not ported yet "
-            "(ROADMAP.md queue 1, item 7: the execution layer's mesh)")
-
-
 @dataclass(frozen=True)
 class SweepOptions:
     """Sweep-engine knobs (env-overridable, see ``from_env``)."""
@@ -81,7 +77,7 @@ class SweepOptions:
     chunk_size: int = 64       # points per chunk == checkpoint granularity
     max_retries: int = 1       # point-wise retries before quarantine
     result_dir: str = "sweep_store"  # default ResultStore directory
-    backend: str = "direct"    # "direct" | "serve" ("mesh" raises)
+    backend: str = "direct"    # "direct" | "mesh" | "serve"
     #: "ipm"/"pdlp" (an "auto" serve bucket also works), or a prebuilt
     #: lane-batched ``callable(params) -> result`` with an ``.obj`` field:
     #: swept leaves carry the lane axis, the others are the defaults
@@ -119,7 +115,6 @@ def _check_not_deferred() -> None:
     """The observability flags whose modules are not ported raise, before
     the sweep touches its store, instead of doing nothing."""
     for flag, what in (("OBS_FLIGHT_DIR", "the flight recorder (obs/flight.py)"),
-                       ("OBS_PROFILE", "cost cards (obs/profile.py)"),
                        ("OBS_LEDGER_DIR", "the perf ledger (obs/ledger.py)")):
         if os.environ.get(flag_name(flag), ""):
             raise NotImplementedError(
@@ -129,7 +124,7 @@ def _check_not_deferred() -> None:
 
 def _resolve_solver(nlp, solver, solver_options, device):
     """(lane-batched solver on ``device``, kind label) for the direct
-    backend."""
+    and mesh backends."""
     if callable(solver):
         return solver, "custom"
     kind = str(solver).lower()
@@ -241,20 +236,20 @@ def run_sweep(nlp, spec: SweepSpec, *,
     backend and ``service`` a caller-owned ``SolveService`` into the
     serve backend; each brings its own device.  Otherwise the sweep runs
     on ``device`` (``cuda`` unless given; without a card that raises).
-    ``mesh`` raises ``NotImplementedError`` (item 7).
+    ``mesh`` places the direct backend's chunks on a device mesh and is
+    the mesh backend's mesh (default: ``parallel.scenario_mesh()`` on
+    ``device``).
     """
     opts = options if options is not None else SweepOptions.from_env()
     if opts.chunk_size < 1:
         raise ValueError("chunk_size must be >= 1")
     backend = opts.backend.lower()
-    if mesh is not None or backend == "mesh":
-        raise NotImplementedError(_NO_MESH)
-    if backend not in ("direct", "serve"):
+    if backend not in ("direct", "mesh", "serve"):
         raise ValueError(
             f"unknown sweep backend {opts.backend!r}; expected 'direct', "
             "'mesh', or 'serve'")
     _check_not_deferred()
-    own = plan if backend == "direct" else service
+    own = {"direct": plan, "serve": service}.get(backend)
     dev = None if own is not None else resolve_device(device)
     defaults = nlp.default_params() if base_params is None else base_params
     names_p = tuple(k for k in spec.swept_names if k in defaults["p"])
@@ -298,7 +293,10 @@ def run_sweep(nlp, spec: SweepSpec, *,
 
     if backend == "direct":
         solve_chunk = _direct_backend(nlp, opts, defaults, warm_eff,
-                                      plan=plan, device=dev)
+                                      plan=plan, device=dev, mesh=mesh)
+    elif backend == "mesh":
+        solve_chunk = _mesh_backend(nlp, opts, names_p, names_f,
+                                    mesh=mesh, device=dev)
     else:
         solve_chunk = _serve_backend(nlp, opts, defaults, service=service,
                                      device=dev)
@@ -453,7 +451,7 @@ def _record_point_outcomes(status: np.ndarray) -> None:
 
 
 def _direct_backend(nlp, opts: SweepOptions, defaults, warm_seed: bool, *,
-                    plan=None, device=None):
+                    plan=None, device=None, mesh=None):
     """``solve_chunk(values, n_live, point_ids=None, seeds=None) -> (obj,
     conv, iters, refined)`` through a plan program.
 
@@ -463,7 +461,7 @@ def _direct_backend(nlp, opts: SweepOptions, defaults, warm_seed: bool, *,
     from dispatches_tpu_torch.plan import ExecutionPlan, PlanOptions
 
     xplan = plan if plan is not None else ExecutionPlan(
-        PlanOptions.from_env(device=device))
+        PlanOptions.from_env(device=device, mesh=mesh))
     base, _ = _resolve_solver(nlp, opts.solver, opts.solver_options, xplan.device)
     n_var, m_con = nlp.n, nlp.m_eq + nlp.m_ineq
     # the solver batches lanes itself; the plan program counts its
@@ -487,7 +485,12 @@ def _direct_backend(nlp, opts: SweepOptions, defaults, warm_seed: bool, *,
                 p[k] = v
             else:
                 f[k] = v
-        staged = xplan.stage({"p": p, "fixed": f}, lanes=width, donate=False)
+        # swept leaves carry the lane axis; defaults replicate (the plan
+        # splits/replicates accordingly when it holds a mesh)
+        batched = {grp: {k: k in values for k in defaults[grp]}
+                   for grp in ("p", "fixed")}
+        staged = xplan.stage({"p": p, "fixed": f}, lanes=width, donate=False,
+                             batched=batched)
         if warm_seed:
             # every lane carries a (x0, z0, kind) start; seedless chunks
             # (the first, and all retries) pass zeros — bitwise the cold
@@ -531,6 +534,29 @@ def _direct_backend(nlp, opts: SweepOptions, defaults, warm_seed: bool, *,
 
     solve_chunk.supports_seeds = warm_seed
     solve_chunk.seed_dims = (n_var, m_con)
+    return solve_chunk
+
+
+def _mesh_backend(nlp, opts: SweepOptions, names_p, names_f, *, mesh=None,
+                  device=None):
+    """``solve_chunk(values, n_live, point_ids=None)`` through
+    ``parallel.scenario_sharded_solver`` over ``mesh`` (default: every
+    visible device of ``device``'s kind)."""
+    from dispatches_tpu_torch.parallel import scenario_mesh, scenario_sharded_solver
+
+    if mesh is None:
+        mesh = scenario_mesh(device=device)
+    base, _ = _resolve_solver(nlp, opts.solver, opts.solver_options,
+                              mesh.devices[0])
+    sharded = scenario_sharded_solver(
+        nlp, mesh, batched_keys=names_p, batched_fixed_keys=names_f,
+        solver=base, full_result=True)
+
+    def solve_chunk(values, n_live, point_ids=None):
+        # the sharded solver pads to the mesh and strips internally, and
+        # its collect() fences, so the chunk timer measures completion
+        return _extract(sharded(values), n_live)
+
     return solve_chunk
 
 

@@ -34,11 +34,6 @@ from dispatches_tpu_torch.workflow.clustering import TimeSeriesClustering, slice
 __all__ = ["MLP", "mlp_apply", "TrainNNSurrogates", "pretrained_surrogates",
            "load_pretrained_surrogate"]
 
-_NOT_PORTED_MESH = ("data-parallel surrogate training over a device mesh "
-                    "(mesh=) is not ported yet (ROADMAP.md queue 1, item 7: "
-                    "the execution layer's mesh)")
-
-
 class MLP(nn.Module):
     """Sigmoid hidden layers, linear output, float64 (the reference's
     Keras surrogate architecture)."""
@@ -105,13 +100,23 @@ def _init_mlp(sizes: Sequence[int], seed: int) -> List[Dict[str, np.ndarray]]:
 def _train_mlp(x, y, sizes, epochs=500, seed=0, learning_rate=1e-3,
                batch_size=None, mesh=None, device=None):
     """Adam training of an MLP (the reference's 500-epoch Keras fit) on
-    ``device`` (``cuda`` unless given).  ``batch_size`` enables shuffled
-    minibatch epochs (numpy ``default_rng(seed)`` permutations, the tail
-    batch padded from the permutation's head, as in the JAX package)
-    instead of full-batch steps.  Returns (MLP, last loss)."""
-    if mesh is not None:
-        raise NotImplementedError(_NOT_PORTED_MESH)
-    dev = resolve_device(device)
+    ``device`` (``cuda`` unless given; with a mesh and no device, the
+    mesh's first entry).  ``batch_size`` enables shuffled minibatch epochs
+    (numpy ``default_rng(seed)`` permutations, the tail batch padded from
+    the permutation's head, as in the JAX package) instead of full-batch
+    steps.
+
+    ``mesh`` (a ``parallel.Mesh``) splits each (mini)batch into
+    contiguous row shards, one per mesh entry, with the JAX package's
+    rule: the minibatch size is rounded down to a multiple of the mesh
+    size (at least one row per entry).  Each shard's share of the mean
+    squared error is back-propagated on its entry's device, through a
+    replica of the MLP where that device is not the MLP's own, and the
+    gradients are summed onto the MLP before the Adam step — data-parallel
+    training, where the JAX package lets XLA insert the all-reduce.
+    Returns (MLP, last loss)."""
+    dev = (mesh.devices[0] if mesh is not None and device is None
+           else resolve_device(device))
     mlp = MLP.from_params(_init_mlp(sizes, seed), device=dev)
     opt = torch.optim.Adam(mlp.parameters(), lr=learning_rate,
                            betas=(0.9, 0.999), eps=1e-8)
@@ -128,6 +133,32 @@ def _train_mlp(x, y, sizes, epochs=500, seed=0, learning_rate=1e-3,
         opt.step()
         return loss.detach()
 
+    if mesh is not None:
+        shard_devs = list(mesh.devices.flat)
+        replicas = {d: MLP.from_params(mlp.to_params(), device=d)
+                    for d in dict.fromkeys(shard_devs) if d != dev}
+
+        def step(xb, yb):  # noqa: F811 — the data-parallel step
+            opt.zero_grad(set_to_none=True)
+            for rep_mlp in replicas.values():  # broadcast the weights
+                with torch.no_grad():
+                    for pr, pm in zip(rep_mlp.parameters(), mlp.parameters()):
+                        pr.copy_(pm)
+                rep_mlp.zero_grad(set_to_none=True)
+            total = yb.numel()
+            loss = torch.zeros((), dtype=torch.float64, device=dev)
+            for d, xs, ys in zip(shard_devs, torch.tensor_split(xb, len(shard_devs)),
+                                 torch.tensor_split(yb, len(shard_devs))):
+                model = replicas.get(d, mlp)
+                part = torch.sum((model(xs.to(d)) - ys.to(d)) ** 2) / total
+                part.backward()
+                loss += part.detach().to(dev)
+            for rep_mlp in replicas.values():  # all-reduce onto the MLP
+                for pr, pm in zip(rep_mlp.parameters(), mlp.parameters()):
+                    pm.grad = pr.grad.to(dev) if pm.grad is None else pm.grad + pr.grad.to(dev)
+            opt.step()
+            return loss
+
     loss = torch.tensor(float("inf"))
     if batch_size is None or batch_size >= n:
         for _ in range(epochs):
@@ -135,6 +166,9 @@ def _train_mlp(x, y, sizes, epochs=500, seed=0, learning_rate=1e-3,
         return mlp, float(loss)
 
     bs = int(batch_size)
+    if mesh is not None:
+        m_dev = int(np.prod([mesh.shape[a] for a in mesh.axis_names]))
+        bs = max(m_dev, (bs // m_dev) * m_dev)
     rng = np.random.default_rng(seed)
     for _ in range(epochs):
         perm = rng.permutation(n)

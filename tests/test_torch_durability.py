@@ -54,6 +54,7 @@ from dispatches_tpu_torch.serve import (  # noqa: E402
 )
 from dispatches_tpu_torch.serve.__main__ import _arbitrage_nlp  # noqa: E402
 from dispatches_tpu_torch.serve.bucket import request_fingerprint  # noqa: E402
+from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 CPU = "cpu"
 

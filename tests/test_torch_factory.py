@@ -30,6 +30,7 @@ from dispatches_tpu_torch.solvers.factory import (  # noqa: E402
     SolverFactory,
     register_solver,
 )
+from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 CPU = "cpu"
 
@@ -112,7 +113,7 @@ def test_factory_unknown_solver():
 
 def test_serve_is_not_ported():
     """``serve`` itself is ported (tests/test_torch_serve.py holds it to
-    the JAX service); what of it is not ported yet raises."""
+    the JAX service), its mesh option too."""
     from dispatches_tpu_torch.serve import SolveService, set_default_service
 
     prev = set_default_service(None)
@@ -120,10 +121,11 @@ def test_serve_is_not_ported():
         assert SolverFactory("serve", device=CPU).service.plan.device.type == "cpu"
     finally:
         set_default_service(prev)
+    from dispatches_tpu_torch.parallel import scenario_mesh
     from dispatches_tpu_torch.serve import ServeOptions
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        SolveService(ServeOptions(mesh=object()), device=CPU)
+    svc = SolveService(ServeOptions(mesh=scenario_mesh(2, device=CPU)), device=CPU)
+    assert svc.plan.mesh.shape == {"scenario": 2} and svc.plan.device.type == "cpu"
 
 
 def test_register_solver():

@@ -6,7 +6,9 @@ forecaster) held to the JAX package on the CPU, in float64.
   Bidder monotone curves) on both packages: the stacked solves (both
   couplings) with equal iterations and x within 1e-8, bids within 1e-6
   relative, and that file's optimality and non-anticipativity checks on
-  the port;
+  the port.  JAX's side is recorded (``grid_bidders_jax`` in
+  tests/torch_records.py; a ``slow`` test holds the record to JAX
+  bitwise);
 - a ``Tracker`` over 4 rolling hours: iterations equal, power output and
   realized state within 1e-8 (relative to max(1, |JAX's value|));
 - the coordinator and backcaster cases of tests/test_double_loop.py that
@@ -14,7 +16,9 @@ forecaster) held to the JAX package on the CPU, in float64.
 - ``compute_day_ahead_bids_batch`` at D = 3 (the day as the IPM's lane
   axis) equal to three sequential ``compute_day_ahead_bids`` calls on the
   same capacity-factor windows, and its errors;
-- ``mesh=`` raising ``NotImplementedError`` naming ROADMAP item 7.
+- ``mesh=``: the day batch split over a 3-entry CPU mesh, one day per
+  entry, within 1e-9 relative of the mesh-free batch (and the
+  coordinator's prefetch over a 2-entry mesh).
 """
 
 from pathlib import Path
@@ -34,6 +38,7 @@ from dispatches_tpu_torch.case_studies.renewables.wind_battery_double_loop impor
 )
 from dispatches_tpu_torch import grid as tgrid  # noqa: E402
 
+import torch_records  # noqa: E402
 from test_torch_stacked import T_DA, make_bidder, one_torch_thread  # noqa: E402,F401
 
 BID_RTOL = 1e-6
@@ -75,29 +80,74 @@ def assert_stacked_solves_match(tb, t_res, j_res):
 # ---------------------------------------------------------------------------
 
 
+# JAX's bidders compile their stacked IPM for minutes, so their outputs on
+# these recipes are recorded (tests/torch_records.py, ``grid_bidders_jax``);
+# test_bidder_jax_record_is_current (slow) rebuilds them and holds them to
+# the record bitwise.
+BIDDER_RECORD = "grid_bidders_jax"
+NON_ANTICIPATIVITY = 20.0 + 15.0 * np.random.default_rng(0).random((3, T_DA))
+SINGLE_PRICE = 20.0 + 20.0 * np.random.default_rng(1).random(T_DA)
+MONOTONE = np.sort(15.0 + 25.0 * np.random.default_rng(3).random((3, T_DA)), axis=0)
+
+
+def _res_fields(res):
+    return {k: np.asarray(getattr(res, k)) for k in ("status", "iterations", "x", "obj")}
+
+
+def jax_record():
+    """JAX's stacked solves and bids on the three recipes below."""
+    jb = make_bidder("jax", "first_stage", NON_ANTICIPATIVITY)
+    prices = jb._forecast("2020-01-02", 0, T_DA)
+    j_powers, j_res = jb._scenario_solve(jb.day_ahead_model, prices)
+    out = {"non_anticipativity": {
+        "res": _res_fields(j_res), "powers": np.asarray(j_powers),
+        "bids": jb.compute_day_ahead_bids(date="2020-01-02")}}
+    jb = make_bidder("jax", "first_stage", SINGLE_PRICE[None, :], n_scenario=1)
+    out["single_scenario"] = {"bids": jb.compute_day_ahead_bids(date="2020-01-02")}
+    jb = make_bidder("jax", "monotone", MONOTONE)
+    prices = jb._forecast("2020-01-02", 0, T_DA)
+    out["monotone"] = {"res": _res_fields(jb._scenario_solve(jb.day_ahead_model, prices)[1]),
+                       "bids": jb.compute_day_ahead_bids(date="2020-01-02")}
+    return out
+
+
+def _recorded(case):
+    """One recipe's JAX outputs from the record: the result's fields as
+    attributes, the bids keyed by hour again."""
+    rec = torch_records.read(BIDDER_RECORD)[case]
+    if "res" in rec:
+        rec["res"] = type("JRes", (), rec["res"])
+    if "bids" in rec:
+        rec["bids"] = {int(t): v for t, v in rec["bids"].items()}
+    return rec
+
+
+@pytest.mark.slow
+def test_bidder_jax_record_is_current():
+    assert torch_records.matches(BIDDER_RECORD, jax_record())
+
+
 def test_self_schedule_non_anticipativity_matches_jax():
-    scenarios = 20.0 + 15.0 * np.random.default_rng(0).random((3, T_DA))
+    scenarios = NON_ANTICIPATIVITY
     tb = make_bidder("torch", "first_stage", scenarios)
-    jb = make_bidder("jax", "first_stage", scenarios)
+    want = _recorded("non_anticipativity")
     prices = tb._forecast("2020-01-02", 0, T_DA)
     powers, res = tb._scenario_solve(tb.day_ahead_model, prices)
     assert bool(res.converged)
     e = tb.day_ahead_model.stacked.first_stage(res.x)
     for s in range(3):
         np.testing.assert_allclose(powers[s], e, atol=1e-3)
-    j_powers, j_res = jb._scenario_solve(jb.day_ahead_model, prices)
+    j_powers, j_res = want["powers"], want["res"]
     assert_stacked_solves_match(tb, res, j_res)
     np.testing.assert_allclose(powers, j_powers, rtol=0, atol=BID_RTOL * 200.0)
-    assert_bids_match(tb.compute_day_ahead_bids(date="2020-01-02"),
-                      jb.compute_day_ahead_bids(date="2020-01-02"))
+    assert_bids_match(tb.compute_day_ahead_bids(date="2020-01-02"), want["bids"])
 
 
 def test_self_schedule_optimality_single_scenario_matches_jax():
-    price = 20.0 + 20.0 * np.random.default_rng(1).random(T_DA)
+    price = SINGLE_PRICE
     tb = make_bidder("torch", "first_stage", price[None, :], n_scenario=1)
-    jb = make_bidder("jax", "first_stage", price[None, :], n_scenario=1)
     bids = tb.compute_day_ahead_bids(date="2020-01-02")
-    assert_bids_match(bids, jb.compute_day_ahead_bids(date="2020-01-02"))
+    assert_bids_match(bids, _recorded("single_scenario")["bids"])
     sched = np.array([bids[t]["309_WIND_1"]["p_max"] for t in range(T_DA)])
     assert np.all(sched >= -1e-6) and np.all(sched <= 200.0 + 1e-6)
     blk = tb.day_ahead_model
@@ -108,18 +158,17 @@ def test_self_schedule_optimality_single_scenario_matches_jax():
 
 
 def test_bidder_monotone_curves_match_jax():
-    scenarios = np.sort(15.0 + 25.0 * np.random.default_rng(3).random((3, T_DA)), axis=0)
+    scenarios = MONOTONE
     tb = make_bidder("torch", "monotone", scenarios)
-    jb = make_bidder("jax", "monotone", scenarios)
     prices = tb._forecast("2020-01-02", 0, T_DA)
     powers, res = tb._scenario_solve(tb.day_ahead_model, prices)
     assert bool(res.converged)
-    assert_stacked_solves_match(tb, res, jb._scenario_solve(jb.day_ahead_model, prices)[1])
+    assert_stacked_solves_match(tb, res, _recorded("monotone")["res"])
     for t in range(T_DA):
         order = np.argsort(prices[:, t])
         assert np.all(np.diff(powers[order, t]) >= -1e-3), f"hour {t}"
     bids = tb.compute_day_ahead_bids(date="2020-01-02")
-    assert_bids_match(bids, jb.compute_day_ahead_bids(date="2020-01-02"))
+    assert_bids_match(bids, _recorded("monotone")["bids"])
     for t in range(T_DA):
         curve = bids[t]["309_WIND_1"]["p_cost"]
         pows, costs = [p for p, _ in curve], [c for _, c in curve]
@@ -233,14 +282,40 @@ def test_day_batch_rejects_an_override_matching_no_key():
         bidder.compute_day_ahead_bids_batch(["2020-01-02", "2020-01-03"])
 
 
+MESH_RTOL = 1e-9
+
+
+def _assert_bids_close(got, want, rtol):
+    for d in want:
+        for t in want[d]:
+            for k, wv in want[d][t]["309_WIND_1"].items():
+                gv = got[d][t]["309_WIND_1"][k]
+                if k == "p_cost":
+                    for (gp, gc), (wp, wc) in zip(gv, wv):
+                        assert _rel(gp, wp) <= rtol and _rel(gc, wc) <= rtol, (d, t)
+                else:
+                    assert _rel(float(gv), float(wv)) <= rtol, (d, t, k)
+
+
 def test_mesh_raises_naming_item_7():
+    """The day axis over a mesh (each entry solves its own days, gathered
+    in day order) equals the mesh-free day batch within 1e-9 relative."""
+    from dispatches_tpu_torch.parallel import scenario_mesh
+
+    dates = ["2020-01-02", "2020-01-03", "2020-01-04"]
     bidder = make_bidder("torch", "first_stage")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        bidder.compute_day_ahead_bids_batch(["2020-01-02"], mesh=object())
+    want = bidder.compute_day_ahead_bids_batch(dates)
+    got = bidder.compute_day_ahead_bids_batch(dates, mesh=scenario_mesh(3, device="cpu"))
+    assert list(got) == dates
+    _assert_bids_close(got, want, MESH_RTOL)
     tracker = _tracker("torch")
     coord = tgrid.DoubleLoopCoordinator(bidder, tracker, tracker)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        coord.prefetch_da_bids(["2020-01-02"], mesh=object())
+    coord.prefetch_da_bids(dates[:2], mesh=scenario_mesh(2, device="cpu"))
+    assert sorted(coord._da_prefetch) == dates[:2]
+    # the IPM's lanes do not interact, so the first two days of the
+    # 3-day batch are the 2-day batch's
+    _assert_bids_close({d: coord._da_prefetch[d] for d in dates[:2]},
+                       {d: want[d] for d in dates[:2]}, MESH_RTOL)
 
 
 def test_grid_exports_match_jax():

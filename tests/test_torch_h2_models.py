@@ -31,6 +31,7 @@ from dispatches_tpu_torch import models as t_models  # noqa: E402
 from dispatches_tpu_torch import properties as t_props  # noqa: E402
 from dispatches_tpu_torch.core.graph import Flowsheet as TFlowsheet  # noqa: E402
 from dispatches_tpu_torch.solvers import IPMOptions, solve_nlp  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 RTOL = 1e-12
 PKG = {

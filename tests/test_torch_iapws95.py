@@ -42,6 +42,7 @@ from dispatches_tpu.properties import salts as jsalts  # noqa: E402
 from dispatches_tpu_torch.properties import iapws95 as w  # noqa: E402
 from dispatches_tpu_torch.properties import iapws_transport as tr  # noqa: E402
 from dispatches_tpu_torch.properties import salts  # noqa: E402
+from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 # (T [K], rho [kg/m3], P [MPa], cv [kJ/kg/K], w [m/s], s [kJ/kg/K])
 TABLE7 = [

@@ -38,6 +38,7 @@ from dispatches_tpu_torch.solvers import (  # noqa: E402
     make_ipm_solver,
     solve_nlp,
 )
+import torch_records  # noqa: E402
 
 CPU = "cpu"
 
@@ -224,8 +225,13 @@ def test_per_lane_starts():
         torch.testing.assert_close(one.x, res.x[i], rtol=1e-12, atol=1e-12)
 
 
-@pytest.fixture(scope="module")
-def flagship_dense():
+FLAGSHIP_RECORD = "ipm_flagship_dense_jax"
+
+
+def jax_record():
+    """JAX's dense IPM over entry()'s 8 lanes at max_iter 300, vmapped and
+    per scenario, with the params it ran on (compiles for minutes, so the
+    tier-1 test reads it from ``tests/torch_records.py``'s record)."""
     jn = j_build_nlp()
     params = jn.default_params()
     lmps = _lmp_batch(8, 24)
@@ -237,8 +243,22 @@ def flagship_dense():
     per_scenario = np.array([
         int(one({"p": {**params["p"], "lmp": lmps[s]}, "fixed": params["fixed"]}).iterations)
         for s in range(8)])
-    return batched, {k: np.asarray(getattr(res, k)) for k in ("status", "obj", "iterations")}, \
-        per_scenario
+    return {"batched": jax.tree_util.tree_map(np.asarray, batched),
+            "want": {k: np.asarray(getattr(res, k)) for k in ("status", "obj", "iterations")},
+            "per_scenario": per_scenario}
+
+
+@pytest.fixture(scope="module")
+def flagship_dense():
+    rec = torch_records.read(FLAGSHIP_RECORD)
+    return rec["batched"], rec["want"], rec["per_scenario"]
+
+
+@pytest.mark.slow
+def test_flagship_dense_jax_record_is_current():
+    """JAX's side of test_flagship_dense_matches_jax, rebuilt, equals its
+    record bitwise."""
+    assert torch_records.matches(FLAGSHIP_RECORD, jax_record())
 
 
 def test_flagship_dense_matches_jax(flagship_dense):

@@ -34,6 +34,7 @@ from dispatches_tpu_torch.learn import predictor as t_pred  # noqa: E402
 from dispatches_tpu_torch.learn import train as t_train  # noqa: E402
 from dispatches_tpu_torch.serve import warmstart as t_ws  # noqa: E402
 from dispatches_tpu_torch.utils import checkpoint as t_ckpt  # noqa: E402
+from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 CPU = "cpu"
 D, N, M = 12, 10, 7

@@ -28,6 +28,7 @@ from dispatches_tpu_torch.case_studies.renewables.flowsheet import create_model 
 from dispatches_tpu_torch.core.graph import tshift as t_tshift  # noqa: E402
 from dispatches_tpu_torch.models import wind_power as t_wind  # noqa: E402
 from dispatches_tpu_torch.solvers import pdlp as t_pdlp  # noqa: E402
+from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 T = 24
 CPU = torch.device("cpu")

@@ -9,9 +9,11 @@ writer makes from a seed (the card runs the same writer at 73 buses).
   line: LMPs within 1e-6 absolute of JAX's, the objective within 1e-8
   relative, and the dense IPM's affine shortcut and sparse Schur product
   equal to its generic path;
-- the simulated market day and ``run_double_loop`` are in
-  tests/test_torch_market_day.py (a file of their own, so that the
-  parallel tier-1 run spreads the two long JAX compiles).
+- one simulated day without a participant (RUC window 24 h): every CSV
+  equal to JAX's, which compiles for minutes and is therefore recorded
+  (``tests/torch_records.py``, ``market_day_jax_csvs``;
+  tests/test_torch_market_day.py holds the record to JAX bitwise and
+  compares ``run_double_loop``, both ``slow``).
 """
 
 import dataclasses
@@ -19,6 +21,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pandas as pd
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -32,6 +35,7 @@ from dispatches_tpu_torch.solvers.ipm import IPMOptions, make_ipm_solver  # noqa
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
+import torch_records  # noqa: E402
 from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 CPU = "cpu"
@@ -169,9 +173,30 @@ def test_device_defaults_to_cuda():
 
 
 def test_market_mesh_raises_naming_item_7(data, tmp_path):
+    """``simulate(mesh=)`` hands the mesh to each window's day-parallel
+    prefetch, as the JAX simulator does (the bids over a mesh are held to
+    the mesh-free batch in tests/test_torch_grid.py); a stub coordinator
+    stops the day once the window's bids were asked for."""
+    from dispatches_tpu_torch.parallel import scenario_mesh
+
+    class Stop(Exception):
+        pass
+
+    calls = []
+
+    class Coordinator:
+        def prefetch_da_bids(self, dates, mesh=None):
+            calls.append((list(dates), mesh))
+
+        def request_da_bids(self, date):
+            raise Stop(date)
+
     sim = tm.MarketSimulator(tm.load_rts_gmlc_case(data), tmp_path, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        sim.simulate("2020-07-10", 1, mesh=object())
+    sim.coordinator = Coordinator()
+    mesh = scenario_mesh(2, device=CPU)
+    with pytest.raises(Stop):
+        sim.simulate("2020-07-10", 2, da_bid_window=2, mesh=mesh)
+    assert calls == [(["2020-07-10", "2020-07-11"], mesh)]
 
 
 def test_sparse_schur_product_equals_the_dense_one(binding_case, monkeypatch):
@@ -189,3 +214,30 @@ def test_sparse_schur_product_equals_the_dense_one(binding_case, monkeypatch):
     sparse = make_ipm_solver(lp.nlp, opts, device=CPU)(p)
     assert int(sparse.iterations) == int(dense.iterations) and int(sparse.status) == 0
     np.testing.assert_allclose(sparse.x.numpy(), dense.x.numpy(), rtol=0, atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# the simulated market day (JAX's CSVs recorded)
+# ---------------------------------------------------------------------------
+
+MARKET_DAY_RECORD = "market_day_jax_csvs"
+
+
+def _csvs(d):
+    return {p.name: p.read_text() for p in sorted(Path(d).glob("*.csv"))}
+
+
+def test_one_day_without_participant_csvs_equal(data, tmp_path):
+    tc = tm.load_rts_gmlc_case(data)
+    # the shortest RUC window the market accepts (24 h; the card runs the
+    # default 48 at 73 buses): the JAX side's compile grows with it
+    t_out = tm.MarketSimulator(tc, tmp_path / "t", ruc_horizon=24,
+                               device=CPU).simulate("2020-07-10", 1)
+    got, want = _csvs(t_out["output_dir"]), torch_records.read(MARKET_DAY_RECORD)
+    assert sorted(got) == sorted(want) == sorted([
+        "bus_detail.csv", "hourly_summary.csv", "overall_simulation_output.csv",
+        "renewables_detail.csv", "thermal_detail.csv"])
+    for name in want:
+        assert got[name] == want[name], name
+    assert len(pd.read_csv(t_out["output_dir"] / "bus_detail.csv")) == 24 * 5
+    assert pd.read_csv(t_out["output_dir"] / "hourly_summary.csv")["Shortfall"].max() == 0.0

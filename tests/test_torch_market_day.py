@@ -1,16 +1,20 @@
-"""The PyTorch port's market day and double loop held to the JAX package
-on the CPU, on the 5-bus synthetic RTS-GMLC-format case of
+"""The slow halves of the port's market day and double loop against the
+JAX package on the CPU, on the 5-bus synthetic RTS-GMLC-format case of
 tests/test_torch_market.py (``chip_smoke.py``'s writer; the card runs it at
 73 buses):
 
-- one simulated day without a participant: every CSV equal to JAX's to
-  its rounding;
+- JAX's simulated day without a participant, run again and held bitwise
+  to its record (``tests/torch_records.py``, ``market_day_jax_csvs``); the
+  port's CSVs are held to that record in tier 1, by
+  tests/test_torch_market.py::test_one_day_without_participant_csvs_equal;
 - ``run_double_loop`` for one day at narrow options (DA horizon 24,
   ``n_scenario`` 2, ``slow``): the market's CSVs, the bids and the total
   cost within 1e-6 of JAX's; the trackers' logs by schema (the tracking LP
   is degenerate, see the test).
 """
 
+import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -25,29 +29,16 @@ from dispatches_tpu.grid import market as jm  # noqa: E402
 from dispatches_tpu_torch.case_studies.renewables import run_double_loop as t_rdl  # noqa: E402
 from dispatches_tpu_torch.grid import market as tm  # noqa: E402
 
-from test_torch_market import CPU, data  # noqa: E402,F401
+import torch_records  # noqa: E402
+from test_torch_market import CPU, MARKET_DAY_RECORD, _csvs, data  # noqa: E402,F401
 from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 
-def _csvs(d):
-    return {p.name: p.read_text() for p in sorted(Path(d).glob("*.csv"))}
-
-
-def test_one_day_without_participant_csvs_equal(data, tmp_path):
-    tc, jc = tm.load_rts_gmlc_case(data), jm.load_rts_gmlc_case(data)
-    # the shortest RUC window the market accepts (24 h; the card runs the
-    # default 48 at 73 buses): the JAX side's compile grows with it
-    t_out = tm.MarketSimulator(tc, tmp_path / "t", ruc_horizon=24,
-                               device=CPU).simulate("2020-07-10", 1)
-    j_out = jm.MarketSimulator(jc, tmp_path / "j", ruc_horizon=24).simulate("2020-07-10", 1)
-    got, want = _csvs(t_out["output_dir"]), _csvs(j_out["output_dir"])
-    assert sorted(got) == sorted(want) == sorted([
-        "bus_detail.csv", "hourly_summary.csv", "overall_simulation_output.csv",
-        "renewables_detail.csv", "thermal_detail.csv"])
-    for name in want:
-        assert got[name] == want[name], name
-    assert len(pd.read_csv(t_out["output_dir"] / "bus_detail.csv")) == 24 * 5
-    assert pd.read_csv(t_out["output_dir"] / "hourly_summary.csv")["Shortfall"].max() == 0.0
+def _jax_day_csvs(data, out):
+    """JAX's simulated day (no participant, RUC window 24 h) as CSV text."""
+    j_out = jm.MarketSimulator(jm.load_rts_gmlc_case(data), out,
+                               ruc_horizon=24).simulate("2020-07-10", 1)
+    return _csvs(j_out["output_dir"])
 
 
 @pytest.mark.slow
@@ -88,3 +79,20 @@ def test_run_double_loop_matches_jax(data, tmp_path):
                                            rtol=0, atol=1e-6, err_msg=f"{name}:{col}")
             else:
                 assert got[col].astype(str).tolist() == want[col].astype(str).tolist(), name
+
+
+@pytest.mark.slow
+def test_one_day_jax_record_is_current(data, tmp_path):
+    """JAX's simulated day, run again, equals the record bitwise."""
+    assert torch_records.matches(MARKET_DAY_RECORD, _jax_day_csvs(data, tmp_path / "j"))
+
+
+def jax_record():
+    """JAX's day on the 5-bus case the ``data`` fixture writes."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    with tempfile.TemporaryDirectory() as tmp:
+        case = chip_smoke.write_synthetic_rts(Path(tmp) / "rts5", n_bus=5, n_branch=7,
+                                              n_thermal=5, n_renewable=2, seed=0)
+        return _jax_day_csvs(case, Path(tmp) / "j")

@@ -7,7 +7,9 @@ CPU, in float64.
   objective, residuals and Jacobians at x0 and at a seeded random x within
   1e-12 relative; the square solves' anchors of that file on the port;
 - tests/test_ne_multiperiod.py's price-taker at LMP 5 (T = 4, h2 price 3,
-  max_iter 600): iterations equal, objective within 1e-8 relative;
+  max_iter 600): iterations equal, objective within 1e-8 relative (JAX's
+  result recorded, ``nuclear_price_taker_jax`` in tests/torch_records.py,
+  and held to JAX by a ``slow`` test);
 - the ``MultiPeriodNuclear`` protocol (populate, solve against a flat
   price, implemented profile, update, record/write) with CSV output equal
   to JAX's.
@@ -30,6 +32,7 @@ from dispatches_tpu_torch.case_studies.nuclear import multiperiod as tmp  # noqa
 from dispatches_tpu_torch.grid.model_data import ThermalGeneratorModelData as TMD  # noqa: E402
 from dispatches_tpu_torch.solvers import IPMOptions as TOpts, solve_nlp as t_solve  # noqa: E402
 
+import torch_records  # noqa: E402
 from test_torch_h2_models import assert_callables_match, assert_same_layout  # noqa: E402
 from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
@@ -97,9 +100,26 @@ def test_multiperiod_model_matches_jax():
         == pytest.approx(0.2 / tn.MW_H2)
 
 
+PRICE_TAKER_RECORD = "nuclear_price_taker_jax"
+PRICE_TAKER_KW = dict(h2_price=3.0, max_iter=600)
+
+
+def jax_record():
+    """JAX's price-taker at LMP 5 (its IPM compiles for minutes, so tier 1
+    reads this record; test_price_taker_jax_record_is_current holds it to
+    JAX bitwise)."""
+    _, _, j_res, _ = jmp.ne_price_taker_optimize(T, np.full(T, 5.0), **PRICE_TAKER_KW)
+    return {f: np.asarray(getattr(j_res, f)) for f in ("converged", "iterations", "obj")}
+
+
+@pytest.mark.slow
+def test_price_taker_jax_record_is_current():
+    assert torch_records.matches(PRICE_TAKER_RECORD, jax_record())
+
+
 def test_price_taker_at_lmp_5_matches_jax():
-    kw = dict(h2_price=3.0, max_iter=600)
-    _, jnlp, j_res, j_sol = jmp.ne_price_taker_optimize(T, np.full(T, 5.0), **kw)
+    kw = PRICE_TAKER_KW
+    j_res = type("JRes", (), torch_records.read(PRICE_TAKER_RECORD))
     _, tnlp, t_res, t_sol = tmp.ne_price_taker_optimize(T, np.full(T, 5.0), device="cpu", **kw)
     assert bool(t_res.converged) and bool(j_res.converged)
     assert int(t_res.iterations) == int(j_res.iterations)

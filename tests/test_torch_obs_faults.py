@@ -23,6 +23,7 @@ from dispatches_tpu_torch.obs import online as t_online  # noqa: E402
 from dispatches_tpu_torch.obs import registry as t_reg  # noqa: E402
 from dispatches_tpu_torch.obs import trace as t_trace  # noqa: E402
 from dispatches_tpu_torch.serve import admission as t_adm  # noqa: E402
+from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True)

@@ -22,6 +22,7 @@ from dispatches_tpu.solvers.pdlp import (  # noqa: E402
 )
 
 from dispatches_tpu_torch.kernels import pdhg_sweep as ks  # noqa: E402
+from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 T = 24
 

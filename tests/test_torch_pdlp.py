@@ -43,6 +43,7 @@ from dispatches_tpu_torch.solvers import (  # noqa: E402
     make_lp_data,
     make_pdlp_solver,
 )
+from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 CPU = "cpu"
 

@@ -1,7 +1,9 @@
 """The PyTorch port's batch PDLP solver held to the JAX package on the
 CPU: 16 LMP lanes through both packages on the same LP data (the JAX side
-on its XLA sweep), the zero start, the params and batch-axis checks, the
-builder's guards and the PEM operator.  The PDHG sweeps themselves are
+on its XLA sweep; its results recorded, ``pdlp_batch_jax`` in
+tests/torch_records.py, and held to JAX bitwise by a ``slow`` test), the
+zero start, the params and batch-axis checks, the builder's guards and
+the PEM operator (both packages live).  The PDHG sweeps themselves are
 held in tests/test_torch_pdlp_batch_sweeps.py."""
 
 import numpy as np
@@ -34,6 +36,8 @@ from dispatches_tpu_torch.solvers import (  # noqa: E402
     BatchPDLPOptions,
     make_pdlp_batch_solver,
 )
+import torch_records  # noqa: E402
+from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 T = 24
 CPU = torch.device("cpu")
@@ -41,6 +45,10 @@ CPU = torch.device("cpu")
 
 @pytest.fixture(scope="module")
 def models():
+    return _models()
+
+
+def _models():
     rng = np.random.default_rng(0)
     params_in = {
         "wind_mw": 200.0, "batt_mw": 25.0,
@@ -62,12 +70,48 @@ def _lmp_batch(B, seed):
     return 1e-3 * np.clip(35.0 + 25.0 * rng.standard_normal((B, T)), 0.0, 200.0)
 
 
-def _solve_both(models, B, **opts):
+# the four configurations held to JAX: (lanes, options).  JAX's solver
+# compiles for minutes per configuration, so its results are recorded
+# (tests/torch_records.py, ``pdlp_batch_jax``; the slow
+# test_pdlp_batch_jax_record_is_current holds the record to JAX bitwise)
+CONFIGS = {
+    "f64": (16, dict(tol=1e-6, dtype="float64")),
+    "f32": (16, dict(tol=1e-5, dtype="float32")),
+    "avg": (4, dict(tol=1e-6, dtype="float64", algorithm="avg")),
+    "bf16": (8, dict(tol=1e-5, dtype="float32", precision="bf16x-f32")),
+}
+PDLP_RECORD = "pdlp_batch_jax"
+
+
+def _jax_solve(models, key):
+    jn, _, data = models
+    B, opts = CONFIGS[key]
+    d = jn.default_params()
+    return jax.jit(j_make_solver(jn, JBatchOptions(sweep="xla", **opts), lp_data=data))(
+        {"p": {**d["p"], "lmp": jnp.asarray(_lmp_batch(B, 1))}, "fixed": d["fixed"]})
+
+
+def jax_record():
+    """JAX's objectives, iterations and convergence flags in every
+    configuration of CONFIGS."""
+    models = _models()
+    return {key: {f: np.asarray(getattr(_jax_solve(models, key), f))
+                  for f in ("obj", "iters", "converged")} for key in CONFIGS}
+
+
+@pytest.mark.slow
+def test_pdlp_batch_jax_record_is_current():
+    assert torch_records.matches(PDLP_RECORD, jax_record())
+
+
+def _solve_both(models, key):
+    """(JAX's recorded result, the port's result, the port's solver) in
+    configuration ``key`` on the same LP data and params."""
     jn, tn, data = models
+    B, opts = CONFIGS[key]
     lmp = _lmp_batch(B, 1)
     d = jn.default_params()
-    jres = jax.jit(j_make_solver(jn, JBatchOptions(sweep="xla", **opts), lp_data=data))(
-        {"p": {**d["p"], "lmp": jnp.asarray(lmp)}, "fixed": d["fixed"]})
+    jres = type("JRes", (), torch_records.read(PDLP_RECORD)[key])
     solver = make_pdlp_batch_solver(tn, BatchPDLPOptions(**opts),
                                     lp_data=lp_data_from_numpy(data), device="cpu")
     tres = solver({"p": {**d["p"], "lmp": lmp}, "fixed": d["fixed"]})
@@ -75,7 +119,7 @@ def _solve_both(models, B, **opts):
 
 
 def test_batch_solver_matches_jax_f64(models):
-    jres, tres, _ = _solve_both(models, 16, tol=1e-6, dtype="float64")
+    jres, tres, _ = _solve_both(models, "f64")
     np.testing.assert_allclose(tres.obj.numpy(), np.asarray(jres.obj), rtol=1e-6)
     assert int(np.sum(tres.iters.numpy() == np.asarray(jres.iters))) >= 15
     np.testing.assert_array_equal(tres.converged.numpy(), np.asarray(jres.converged))
@@ -84,20 +128,19 @@ def test_batch_solver_matches_jax_f64(models):
 
 
 def test_batch_solver_matches_jax_f32(models):
-    jres, tres, _ = _solve_both(models, 16, tol=1e-5, dtype="float32")
+    jres, tres, _ = _solve_both(models, "f32")
     np.testing.assert_allclose(tres.obj.numpy(), np.asarray(jres.obj), rtol=5e-5)
     assert float(tres.converged.float().mean()) > 0.8
 
 
 def test_batch_solver_avg_matches_jax_f64(models):
-    jres, tres, _ = _solve_both(models, 4, tol=1e-6, dtype="float64", algorithm="avg")
+    jres, tres, _ = _solve_both(models, "avg")
     np.testing.assert_allclose(tres.obj.numpy(), np.asarray(jres.obj), rtol=1e-6)
     assert int(np.sum(tres.iters.numpy() == np.asarray(jres.iters))) >= 3
 
 
 def test_batch_solver_bf16_tier_matches_jax(models):
-    jres, tres, _ = _solve_both(models, 8, tol=1e-5, dtype="float32",
-                                precision="bf16x-f32")
+    jres, tres, _ = _solve_both(models, "bf16")
     np.testing.assert_allclose(tres.obj.numpy(), np.asarray(jres.obj), rtol=5e-5)
     assert int(tres.refined.max()) > 0
 

@@ -33,6 +33,7 @@ from dispatches_tpu_torch.case_studies.renewables.wind_battery_lmp import (  # n
     wind_battery_pricetaker_nlp as t_pricetaker,
 )
 from dispatches_tpu_torch.kernels import pdhg_sweep as ks  # noqa: E402
+from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 T = 24
 CPU = torch.device("cpu")

@@ -25,6 +25,7 @@ from dispatches_tpu_torch.case_studies.renewables.wind_battery_lmp import (  # n
 )
 from dispatches_tpu_torch.interop import lp_data_from_numpy  # noqa: E402
 from dispatches_tpu_torch.solvers import BatchPDLPOptions, make_pdlp_batch_solver  # noqa: E402
+from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 T = 24
 

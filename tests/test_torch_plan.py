@@ -1,8 +1,8 @@
 """The PyTorch port's ExecutionPlan held to the JAX package's on the CPU.
 
 Mirrors the mesh-free cases of tests/test_plan.py: ``PlanOptions.from_env``
-(names, errors, and the parts that raise until the mesh and the depth
-controller are ported), padding by repeating the last lane, ``stage``
+(names, errors, and the mesh and depth controller those names build),
+padding by repeating the last lane, ``stage``
 copying caller-owned tensors, the bounded in-flight window, FIFO against
 ``ready`` (bitwise, uneven widths; and the retirement order under a
 controllable completion probe), a fence that does not block submitters,
@@ -28,6 +28,7 @@ from dispatches_tpu.plan import PlanOptions as JPlanOptions  # noqa: E402
 from dispatches_tpu_torch.faults import inject as t_faults  # noqa: E402
 from dispatches_tpu_torch.obs import registry as t_reg  # noqa: E402
 from dispatches_tpu_torch.plan import ExecutionPlan, PlanError, PlanOptions  # noqa: E402
+from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 CPU = "cpu"
 
@@ -56,16 +57,20 @@ def test_plan_options_from_env_names_and_errors(monkeypatch):
     assert (opts.inflight, opts.devices, opts.schedule, opts.fence_timeout_ms) == \
         (5, 4, "ready", 250.0)
     assert PlanOptions.from_env(inflight=1).inflight == 1  # explicit wins
-    # the mesh is not ported: asking for one raises, naming the roadmap item
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ExecutionPlan(PlanOptions.from_env(device=CPU))
+    # PLAN_DEVICES > 1 builds a scenario mesh of that many entries on the
+    # plan's device, as the JAX plan builds parallel.scenario_mesh(4)
+    meshed = ExecutionPlan(PlanOptions.from_env(device=CPU))
+    assert meshed.mesh.shape == {"scenario": 4} and meshed.device.type == "cpu"
+    assert meshed.sharding_for(8) is not None and meshed.sharding_for(6) is None
     for var in ("PLAN_INFLIGHT", "PLAN_DEVICES", "PLAN_SCHEDULE", "PLAN_FENCE_TIMEOUT_MS"):
         monkeypatch.delenv(f"DISPATCHES_TPU_{var}")
     assert PlanOptions.from_env().inflight == 2
     monkeypatch.setenv("DISPATCHES_TPU_PLAN_INFLIGHT_MAX", "6")
     assert PlanOptions.from_env().inflight_max == 6
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ExecutionPlan(PlanOptions.from_env(device=CPU))
+    # PLAN_INFLIGHT_MAX arms the depth controller, starting at inflight
+    adaptive = ExecutionPlan(PlanOptions.from_env(device=CPU))
+    assert adaptive.controller.max_inflight == 6
+    assert adaptive.inflight_limit == adaptive.controller.depth == 2
     with pytest.raises(ValueError, match="schedule"):
         PlanOptions(schedule="lifo")
     monkeypatch.setenv("DISPATCHES_TPU_PLAN_INFLIGHT", "x")

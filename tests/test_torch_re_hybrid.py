@@ -14,6 +14,21 @@ CPU, in float64.
   ``jax.hessian`` within 1e-10, ``_initialize_train``'s inits within
   1e-12, and the detected time structure equal to JAX's.  (Relative means
   the max-norm of the difference over max(1, max-norm of the JAX value).)
+- Its first 15 interior-point iterations, both solvers traced
+  (``make_ipm_solver(..., trace=True)``, ``max_iter=15``).  At T = 4 the
+  hybrid has no detectable time structure (detection needs T >= 8), so
+  both KKT options run the dense Cholesky condensation: the port's
+  ``kkt="structured"`` run is bitwise its ``"dense"`` run, and the dense
+  run is held to JAX's.  Its Schur complement is ill-conditioned, so the
+  iterates depend on how the BLAS blocks its products (one BLAS thread
+  against eight moves the traced KKT error by 1.2e-8 and the iterate by
+  5.0e-9 relative on an 8-core x86 CPU; the file runs torch on one thread,
+  as the other test_torch_* files do).  The barrier parameter is held
+  bitwise, the traced KKT error and the iterate within 1e-6 relative.  JAX's trace compiles for minutes, so it is recorded
+  (``tests/torch_records.py``, ``hybrid_ipm_jax_t4_dense``); the slow
+  tests/test_torch_hybrid_ipm.py holds the record to JAX bitwise and runs
+  the T = 8 structured comparison.  At T = 8 the structured path's first
+  Newton step equals the dense path's in the primal.
 
 The converged T = 24 full hybrid is the card's job (``chip_smoke.py``
 phase 6) and the ``slow`` test at the end: JAX itself does not converge
@@ -36,6 +51,8 @@ from dispatches_tpu.case_studies.renewables import wind_battery_pem_lmp as j_pem
 from dispatches_tpu.case_studies.renewables import (  # noqa: E402
     wind_battery_pem_tank_turbine_lmp as j_hyb,
 )
+from dispatches_tpu.solvers import IPMOptions as JIPMOptions  # noqa: E402
+from dispatches_tpu.solvers import make_ipm_solver as j_make_ipm_solver  # noqa: E402
 from dispatches_tpu.solvers import structured as j_st  # noqa: E402
 
 from dispatches_tpu_torch.case_studies.renewables import flowsheet as t_flowsheet  # noqa: E402
@@ -44,9 +61,12 @@ from dispatches_tpu_torch.case_studies.renewables import wind_battery_pem_lmp as
 from dispatches_tpu_torch.case_studies.renewables import (  # noqa: E402
     wind_battery_pem_tank_turbine_lmp as t_hyb,
 )
+from dispatches_tpu_torch.solvers import IPMOptions, make_ipm_solver  # noqa: E402
 from dispatches_tpu_torch.solvers import structured as t_st  # noqa: E402
 
+import torch_records  # noqa: E402
 from test_torch_h2_models import assert_callables_match, assert_rel, assert_same_layout  # noqa: E402
+from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 T = 24
 CFS = 0.3 + 0.3 * np.sin(2 * np.pi * np.arange(T) / 24) ** 2
@@ -311,6 +331,102 @@ def test_hybrid_time_structure_matches_jax(hybrid):
             "battery.nameplate_power"} <= border
     border_x = {int(i) for i in got.border_y_idx if i < tn.n}
     assert border_x == {tn._slices[name][0] for name in border}
+
+
+# ---------------------------------------------------------------------------
+# the first interior-point iterations (JAX's trace recorded)
+# ---------------------------------------------------------------------------
+
+N_ITER = 15
+TRACE_RTOL = 1e-6
+HYBRID_RECORD = "hybrid_ipm_jax_t4_dense"
+
+
+def _jax_trace(horizon, kkt):
+    """(JAX result, JAX trace) of N_ITER traced iterations from the
+    default start."""
+    jn = j_hybrid_nlp(horizon, _params(horizon))
+    return jax.jit(j_make_ipm_solver(jn, JIPMOptions(max_iter=N_ITER, kkt=kkt),
+                                     trace=True))(jn.default_params())
+
+
+def jax_record():
+    """The recorded fields of JAX's T = 4 dense trace."""
+    jres, jtr = _jax_trace(4, "dense")
+    return {"iterations": np.asarray(jres.iterations), "status": np.asarray(jres.status),
+            "x": np.asarray(jres.x),
+            **{f"trace_{k}": np.asarray(jtr[k]) for k in ("mu", "stall", "kkt_error")}}
+
+
+def _recorded():
+    """(JAX result, JAX trace) of the T = 4 dense run, from the record."""
+    rec = torch_records.read(HYBRID_RECORD)
+    res = type("JRes", (), {"iterations": rec["iterations"], "status": rec["status"],
+                            "x": rec["x"]})
+    return res, {k: rec[f"trace_{k}"] for k in ("mu", "stall", "kkt_error")}
+
+
+def _traces(horizon, kkt):
+    """(JAX result, JAX trace, port result, port trace) of N_ITER traced
+    iterations from the default start; JAX's from the record at T = 4
+    dense."""
+    params = _params(horizon)
+    _, tn = t_hyb.wind_battery_pem_tank_turb_nlp(horizon, params)
+    if (horizon, kkt) == (4, "dense"):
+        jres, jtr = _recorded()
+    else:
+        jres, jtr = _jax_trace(horizon, kkt)
+    tres, ttr = make_ipm_solver(tn, IPMOptions(max_iter=N_ITER, kkt=kkt), trace=True,
+                                device="cpu")(tn.default_params())
+    return jres, jtr, tres, ttr, tn
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, dtype=float), np.asarray(want, dtype=float)
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-300)))
+
+
+def _assert_traces_match(jres, jtr, tres, ttr, label):
+    np.testing.assert_array_equal(ttr["mu"].numpy(), np.asarray(jtr["mu"]))
+    np.testing.assert_array_equal(ttr["stall"].numpy(), np.asarray(jtr["stall"]))
+    assert int(tres.iterations) == int(jres.iterations) == N_ITER
+    assert int(tres.status) == int(jres.status)
+    err_rel = _rel(ttr["kkt_error"].numpy(), jtr["kkt_error"])
+    jx = np.asarray(jres.x)
+    x_rel = float(np.max(np.abs(tres.x.numpy() - jx)) / np.max(np.abs(jx)))
+    print(f"{label}: traced KKT error max relative gap {err_rel:.3e}, "
+          f"iterate {x_rel:.3e}")
+    assert err_rel <= TRACE_RTOL
+    assert x_rel <= TRACE_RTOL
+
+
+def test_hybrid_ipm_first_iterations_match_jax():
+    jres, jtr, tres, ttr, tn = _traces(4, "dense")
+    _assert_traces_match(jres, jtr, tres, ttr, "T=4 dense")
+    # "structured" finds no time structure at T = 4: the same solver
+    assert t_st.detect_time_structure(tn, device="cpu") is None
+    sres, strace = make_ipm_solver(tn, IPMOptions(max_iter=N_ITER, kkt="structured"),
+                                   trace=True, device="cpu")(tn.default_params())
+    assert torch.equal(sres.x, tres.x)
+    for k in ("mu", "kkt_error", "alpha", "stall"):
+        assert torch.equal(strace[k], ttr[k]), k
+
+
+def test_hybrid_kkt_paths_take_the_same_first_step():
+    """T = 8, where the structured path runs: its first Newton step (W by
+    coloured Hessian-vector products) equals the dense path's (W by
+    ``jacrev(grad)``) in the primal.  The multipliers differ in the null
+    space of J, which is rank-deficient here; they enter W from the
+    second iteration on, so the two paths part there."""
+    _, tn = t_hyb.wind_battery_pem_tank_turb_nlp(8, _params(8))
+    assert t_st.detect_time_structure(tn, device="cpu") is not None
+    step = {kkt: make_ipm_solver(tn, IPMOptions(max_iter=1, kkt=kkt), device="cpu")(
+        tn.default_params()) for kkt in ("structured", "dense")}
+    s, d = step["structured"], step["dense"]
+    assert int(s.iterations) == int(d.iterations) == 1
+    assert float((d.x - s.x).abs().max() / s.x.abs().max()) <= TRACE_RTOL
+    assert float((d.lam - s.lam).abs().max() / s.lam.abs().max()) > TRACE_RTOL
+
 
 
 @pytest.mark.slow

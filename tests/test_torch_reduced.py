@@ -8,7 +8,9 @@ salt flow and the area; one outer inequality).
   against ``jax.vmap`` of JAX's Newton: equal iterations per lane, x
   within 1e-10 (relative to max(1, |x|)).  The lanes take 1, 3 and 9
   steps, so the freeze of finished lanes is exercised; a lane whose solve
-  fails stays failed.
+  fails stays failed.  JAX's vmapped Newton compiles for minutes, so its
+  results are recorded (``reduced_vmap_newton_jax`` in
+  tests/torch_records.py; a ``slow`` test holds the record to JAX).
 * ``ReducedSpaceNLP``'s evaluation against JAX's ``_evaluate`` at 3
   seeded u within 1e-9 relative; ``df`` and ``dG`` against central
   differences of the port; ``solve`` against JAX's (u within 1e-6, the
@@ -32,6 +34,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+import torch_records  # noqa: E402
 import torch_storage_cases as cases  # noqa: E402
 
 from dispatches_tpu.solvers.newton import make_newton_solver as j_make_newton  # noqa: E402
@@ -79,6 +82,10 @@ def _close(got, want, rtol, what=""):
 
 @pytest.fixture(scope="module")
 def problems():
+    return _problems()
+
+
+def _problems():
     # the JAX flowsheet takes the port's warm start (tests/test_torch_salt_hx.py
     # holds the two packages' _hx_sweep to each other)
     tn, tdec = cases.reduced_problem(cases.torch_modules(), torch)
@@ -88,11 +95,38 @@ def problems():
     return jn, tn, tdec
 
 
-@pytest.fixture(scope="module")
-def jax_vmap_newton(problems):
-    jn, tn, dec = problems
+FAILED_LANES = LANES.copy()
+FAILED_LANES[1] = [-10.0, 2000.0]  # negative salt flow: a non-finite residual
+NEWTON_RECORD = "reduced_vmap_newton_jax"
+
+
+def jax_record():
+    """JAX's ``jax.vmap`` of its Newton solver on the lanes of the two
+    batched-Newton tests (its compile takes minutes, so tier 1 reads this
+    record; test_vmap_newton_jax_record_is_current holds it to JAX)."""
+    jn, tn, dec = _problems()
     _, axes = _lane_params(tn, dec, LANES)
-    return jax.jit(jax.vmap(j_make_newton(jn), in_axes=(axes, 0)))
+    fn = jax.jit(jax.vmap(j_make_newton(jn), in_axes=(axes, 0)))
+    X0 = jnp.asarray(np.tile(np.asarray(tn.x0), (T, 1)))
+    out = {}
+    for key, lanes in (("lanes", LANES), ("failed_lane", FAILED_LANES)):
+        params, _ = _lane_params(tn, dec, lanes)
+        r = fn(jax.tree_util.tree_map(jnp.asarray, params), X0)
+        out[key] = {f: np.asarray(getattr(r, f))
+                    for f in ("iterations", "converged", "x", "max_residual")}
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_vmap_newton():
+    """JAX's vmapped Newton results by case, from the record."""
+    rec = torch_records.read(NEWTON_RECORD)
+    return {k: type("JRes", (), v) for k, v in rec.items()}
+
+
+@pytest.mark.slow
+def test_vmap_newton_jax_record_is_current():
+    assert torch_records.matches(NEWTON_RECORD, jax_record())
 
 
 def _scales(dec):
@@ -134,7 +168,7 @@ def test_batched_newton_matches_single_lanes_and_jax_vmap(problems, jax_vmap_new
         _close(res.x[t], r.x, 1e-10, f"lane {t} vs single")
     assert _np(res.iterations).tolist() == its
     assert its == [1, 3, 9], its  # the frozen lanes waited
-    jres = jax_vmap_newton(jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(X0))
+    jres = jax_vmap_newton["lanes"]
     assert np.asarray(jres.iterations).tolist() == its
     assert np.asarray(jres.converged).tolist() == _np(res.converged).tolist() == [True] * T
     _close(res.x, jres.x, 1e-10, "batched vs jax.vmap")
@@ -143,12 +177,10 @@ def test_batched_newton_matches_single_lanes_and_jax_vmap(problems, jax_vmap_new
 
 def test_batched_newton_keeps_a_failed_lane_failed(problems, jax_vmap_newton):
     jn, tn, dec = problems
-    lanes = LANES.copy()
-    lanes[1] = [-10.0, 2000.0]  # negative salt flow: a non-finite residual
-    params, axes = _lane_params(tn, dec, lanes)
+    params, axes = _lane_params(tn, dec, FAILED_LANES)
     X0 = np.tile(np.asarray(tn.x0), (T, 1))
     res = make_batched_newton_solver(tn, None, axes, device=CPU)(params, X0)
-    jres = jax_vmap_newton(jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(X0))
+    jres = jax_vmap_newton["failed_lane"]
     assert _np(res.converged).tolist() == np.asarray(jres.converged).tolist() == [True, False, True]
     assert _np(res.iterations).tolist() == np.asarray(jres.iterations).tolist()
     assert int(res.iterations[1]) == 1 and not bool(torch.isfinite(res.max_residual[1]))

@@ -37,6 +37,7 @@ from test_torch_reduced import (  # noqa: E402,F401
     _one_thread,
     problems,
 )
+from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

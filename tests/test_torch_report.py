@@ -24,6 +24,7 @@ from dispatches_tpu_torch.models import BatteryStorage as TBatteryStorage  # noq
 from dispatches_tpu_torch.solvers import solve_nlp as t_solve_nlp  # noqa: E402
 
 from test_torch_re_hybrid import T_HYB, _params, j_hybrid_nlp  # noqa: E402
+from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 
 def _battery(Flowsheet, BatteryStorage, solve):

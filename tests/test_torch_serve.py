@@ -44,6 +44,7 @@ from dispatches_tpu_torch.serve import (  # noqa: E402
 from dispatches_tpu_torch.serve import service as service_mod  # noqa: E402
 from dispatches_tpu_torch.serve.__main__ import _arbitrage_nlp  # noqa: E402
 from dispatches_tpu_torch.solvers import PDLPOptions, make_pdlp_solver  # noqa: E402
+from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 CPU = "cpu"
 GOLDEN = os.path.join(os.path.dirname(__file__), "data", "serve_stats_golden.txt")
@@ -389,13 +390,25 @@ def test_device_rule_and_deferred_options_raise(monkeypatch, tmp_path):
     monkeypatch.setenv("DISPATCHES_TPU_SERVE_JOURNAL_DIR", str(tmp_path / "env"))
     assert SolveService(device=CPU).metrics()["durability"]["journaled"]
     monkeypatch.delenv("DISPATCHES_TPU_SERVE_JOURNAL_DIR")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        SolveService(ServeOptions(mesh=object()), device=CPU)
-    for flag in ("OBS_EXPORT_DIR", "OBS_FLIGHT_DIR", "OBS_PROFILE"):
+    # ServeOptions.mesh goes to the plan
+    from dispatches_tpu_torch.obs import profile, trace
+    from dispatches_tpu_torch.parallel import scenario_mesh
+
+    meshed = SolveService(ServeOptions(mesh=scenario_mesh(2, device=CPU)), device=CPU)
+    assert meshed.plan.mesh.shape == {"scenario": 2}
+    for flag in ("OBS_EXPORT_DIR", "OBS_FLIGHT_DIR"):
         monkeypatch.setenv(f"DISPATCHES_TPU_{flag}", str(tmp_path))
         with pytest.raises(NotImplementedError, match="item 12"):
             SolveService(device=CPU)
         monkeypatch.delenv(f"DISPATCHES_TPU_{flag}")
+    # cost cards are ported: the flag no longer stops the service (the
+    # flag is read once per process, so its resolution is restored after)
+    monkeypatch.setattr(profile, "_ENABLED", None)
+    monkeypatch.setattr(trace, "_SPAN_HOOK", None)
+    monkeypatch.setenv("DISPATCHES_TPU_OBS_PROFILE", "1")
+    assert SolveService(device=CPU).plan.device == torch.device("cpu")
+    assert profile.enabled()
+    monkeypatch.delenv("DISPATCHES_TPU_OBS_PROFILE")
     svc = SolveService(device=CPU)
     assert svc.plan.device == torch.device("cpu")
     assert svc.metrics()["durability"] == {"journaled": False, "snapshot_writes": 0,

@@ -36,21 +36,11 @@ from dispatches_tpu_torch.case_studies.renewables.wind_battery_double_loop impor
 from dispatches_tpu_torch import grid as tgrid  # noqa: E402
 
 from test_torch_h2_models import assert_rel  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 RTOL = 1e-12
 T_DA, T_RT = 24, 4
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """These tests run small tensors, where one intra-op thread does the
-    same work in the same time; idle pool threads would only spin, taking
-    cores from the other workers of the parallel tier-1 run.  The previous
-    count is restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 # ---------------------------------------------------------------------------
 # core/config.py: tests/test_config.py on the port

@@ -34,6 +34,7 @@ from dispatches_tpu_torch.entry import _build_nlp as t_build_nlp, entry  # noqa:
 from dispatches_tpu_torch.solvers import IPMOptions, make_ipm_solver  # noqa: E402
 from dispatches_tpu_torch.solvers import structured as t_st  # noqa: E402
 from dispatches_tpu_torch.solvers.ipm import _kkt_solve  # noqa: E402
+import torch_records  # noqa: E402
 
 CPU = "cpu"
 
@@ -199,17 +200,37 @@ def test_structured_kkt_solves_lanes_independently():
 
 @pytest.fixture(scope="module")
 def flagship():
+    """JAX results for entry()'s 8 lanes with kkt="auto" (from the record
+    of :func:`jax_record`)."""
+    rec = torch_records.read(FLAGSHIP_RECORD)
+    return {"batched": rec["batched"], 300: rec["max_iter_300"], 60: rec["max_iter_60"],
+            "per_scenario_iters": rec["per_scenario_iters"]}
+
+
+FLAGSHIP_RECORD = "structured_flagship_jax"
+
+
+@pytest.mark.slow
+def test_flagship_jax_record_is_current():
+    """JAX's side of the flagship tests, rebuilt, equals its record
+    bitwise."""
+    assert torch_records.matches(FLAGSHIP_RECORD, jax_record())
+
+
+def jax_record():
     """JAX results for entry()'s 8 lanes with kkt="auto": vmapped at
-    max_iter 300 and 60, and per scenario at 300."""
+    max_iter 300 and 60, and per scenario at 300, with the params they ran
+    on (compiles for minutes, so tier 1 reads the record)."""
     jn = j_build_nlp()
     params = jn.default_params()
     lmps = _lmp_batch(8, 24)
     batched = {"p": {**params["p"], "lmp": lmps}, "fixed": params["fixed"]}
     axes = ({"p": {k: (0 if k == "lmp" else None) for k in params["p"]}, "fixed": None},)
-    out = {"batched": batched}
+    out = {"batched": jax.tree_util.tree_map(np.asarray, batched)}
     for mi in (300, 60):
         res = jax.jit(jax.vmap(j_make_ipm(jn, JIPMOptions(max_iter=mi)), in_axes=axes))(batched)
-        out[mi] = {k: np.asarray(getattr(res, k)) for k in ("status", "obj", "iterations")}
+        out[f"max_iter_{mi}"] = {k: np.asarray(getattr(res, k))
+                                 for k in ("status", "obj", "iterations")}
     one = jax.jit(j_make_ipm(jn, JIPMOptions(max_iter=300)))
     out["per_scenario_iters"] = np.array([
         int(one({"p": {**params["p"], "lmp": lmps[s]}, "fixed": params["fixed"]}).iterations)

@@ -13,8 +13,11 @@ tests/test_sweep.py built in both packages.
   runs, warm sweeps, quarantine, refine-failed, the refusals, the env
   options, the chunk timer, direct against serve, ``--report`` and the
   surrogate handoff;
-- the guards: the mesh backend (item 7) and the observability flags
-  (item 12) raise, and the default device is the card.
+- the mesh backend and ``mesh=`` on the direct backend, over a 3-entry
+  CPU mesh, held to JAX's direct sweep (iterations equal, objectives
+  within 1e-9 relative); ``DISPATCHES_TPU_OBS_PROFILE`` records a cost
+  card for the sweep program, the flight and ledger flags still raise
+  (item 12), and the default device is the card.
 
 One JAX store and one port store of the canonical 12-point spec are
 built once for the module.
@@ -251,18 +254,43 @@ def test_sweep_options_from_env(monkeypatch):
 
 
 @pytest.mark.parametrize("flag", ["OBS_FLIGHT_DIR", "OBS_PROFILE", "OBS_LEDGER_DIR"])
-def test_unported_obs_flags_raise_before_any_chunk(nlps, tmp_path, monkeypatch, flag):
+def test_unported_obs_flags_raise_before_any_chunk(nlps, tmp_path, monkeypatch, flag,
+                                                    j_store):
+    from dispatches_tpu_torch.obs import profile, trace
+
+    # the flag is read once per process: restore its resolution after
+    monkeypatch.setattr(profile, "_ENABLED", None)
+    monkeypatch.setattr(trace, "_SPAN_HOOK", None)
     monkeypatch.setenv(f"DISPATCHES_TPU_{flag}", str(tmp_path / "obs"))
+    if flag == "OBS_PROFILE":
+        # cost cards are ported: the sweep runs, its program is carded
+        profile.reset()
+        st = _run(nlps, tmp_path / "s")
+        np.testing.assert_allclose(st.objectives(), j_store.objectives(), rtol=OBJ_RTOL)
+        cards = profile.cards_for("sweep.direct")
+        assert cards and cards[0]["count"] == 1 and cards[0]["backend"] == "cpu"
+        profile.reset()
+        return
     with pytest.raises(NotImplementedError, match="item 12"):
         _run(nlps, tmp_path / "s")
     assert not (tmp_path / "s").exists()
 
 
-def test_mesh_and_default_device_guards(nlps, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _run(nlps, tmp_path / "m", options=_opts(backend="mesh"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _run(nlps, tmp_path / "m", mesh=object())
+def test_mesh_and_default_device_guards(nlps, tmp_path, j_store):
+    from dispatches_tpu_torch.parallel import scenario_mesh
+
+    # the mesh backend (scenario_sharded_solver; 4-point chunks pad to 6
+    # lanes on 3 entries) and mesh= on the direct backend (4-lane chunks
+    # do not divide 3 and stay whole; 1-point retries neither)
+    for name, kw in (("m", dict(options=_opts(backend="mesh"))),
+                     ("d", dict())):
+        st = _run(nlps, tmp_path / name, mesh=scenario_mesh(3, device=CPU), **kw)
+        np.testing.assert_array_equal(st.arrays()["iterations"],
+                                      j_store.arrays()["iterations"])
+        np.testing.assert_allclose(st.objectives(), j_store.objectives(), rtol=OBJ_RTOL)
+    # a mesh the chunk width divides: every chunk runs as 2 lane shards
+    st = _run(nlps, tmp_path / "d2", mesh=scenario_mesh(2, device=CPU))
+    np.testing.assert_allclose(st.objectives(), j_store.objectives(), rtol=OBJ_RTOL)
     if not torch.cuda.is_available():
         for backend in ("direct", "serve"):
             with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 from dispatches_tpu.serve import traffic as jtraffic  # noqa: E402
 
 from dispatches_tpu_torch.serve import traffic  # noqa: E402
+from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 
 def test_traffic_streams_are_deterministic():

@@ -226,8 +226,19 @@ def test_train_mlp_from_jax_weights_matches_jax(jax_init, batch_size):
           f"loss {loss:.6e} vs JAX {jloss:.6e}")
     assert rel <= MLP_RTOL
     assert loss == pytest.approx(jloss, rel=MLP_RTOL)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ts._train_mlp(x, y, sizes, epochs=1, mesh=object(), device=CPU)
+    # mesh=: each (mini)batch split over 4 entries (the minibatch of 16
+    # divides 4), held to JAX's data-parallel run on its 4-device virtual
+    # CPU mesh with the same tolerance
+    from dispatches_tpu.parallel import scenario_mesh as j_mesh
+    from dispatches_tpu_torch.parallel import scenario_mesh as t_mesh
+
+    jpm, jlm = js._train_mlp(x, y, sizes, epochs=60, batch_size=batch_size, mesh=j_mesh(4))
+    mlpm, lm = ts._train_mlp(x, y, sizes, epochs=60, batch_size=batch_size,
+                             mesh=t_mesh(4, device=CPU))
+    want = np.asarray(js.mlp_apply(jpm, x))
+    got = ts.mlp_apply(mlpm, x).detach().numpy()
+    assert np.abs(got - want).max() / np.abs(want).max() <= MLP_RTOL
+    assert lm == pytest.approx(jlm, rel=MLP_RTOL)
 
 
 # ---------------------------------------------------------------------
