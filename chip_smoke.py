@@ -3,8 +3,8 @@
 NVIDIA GPU.  Run from the repository root: ``python3 chip_smoke.py``.
 
 Phases (any failure exits nonzero; nothing is caught and passed over).
-Phases 1-3 run alone; then phases 6, 7, 10 (split in two), 11 and 12 run
-in child processes of this script beside phases 4, 5, 8 and 9
+Phases 1-3 run alone; then phases 6, 7, 10 (split in two), 11, 12 and 13
+run in child processes of this script beside phases 4, 5, 8 and 9
 (``CHILD_GROUPS``), each child's output echoed when it ends:
 
 1. device: print the card's name and power limit (nvidia-smi), build the
@@ -181,9 +181,29 @@ in child processes of this script beside phases 4, 5, 8 and 9
    ``[profile]`` with cost cards on, a card with peak bytes for every
    ``serve.`` program signature and the admission prior set before the
    first dispatch completes.
+13. the obs host tier (no hand-written kernel: the sweep kernels' counts
+   are read around the phase and must be 0): ``[soak-real]``
+   ``run_soak(virtual=False)`` on the real clock against phase 2's model
+   (float64 PDLP, tol 1e-8; Poisson 24 requests/s for 20 s, AR(1) LMPs,
+   max_batch 64, warm starts) with the flight recorder and the exporter
+   armed: every request DONE, 16 objectives within 1e-6 of HiGHS,
+   ``metrics.prom`` equal to a fresh render, two export records or more,
+   every bundle of a known kind with its plan section, ``flight.errors``
+   0; ``[soak]`` ``DEFAULT_SPEC`` in virtual time on the card, equal to
+   the CPU's report in every virtual-time field, the spike spec's one
+   coalesced ``burn_rate`` bundle and the crash-restart spec with nothing
+   lost; ``[flight]`` deadline_miss (with the bucket's cost card),
+   plan_error, nan_guard and quarantine bundles, and nothing written when
+   disarmed; ``[ledger]`` phase 8's spec cut to 64 points, three times,
+   the regression gate soft-passing, then passing, then failing on half
+   the solves/s; ``[solverlog]`` the PDLP, IPM and Newton traces decoded
+   on the card and on the CPU, equal rows; ``[obs-cli]``
+   ``python -m dispatches_tpu_torch.obs`` (``--soak``, ``--report``,
+   ``--prom``, ``--slo --check``, ``--ledger --check-regressions``) in
+   child Pythons, with the JAX CLI's exit codes and JSON keys.
 
 Phase 3 times every kernel tier at B = 366, 1024 and 4096.
-``--only-phase 6``, ``7``, ``8``, ``9``, ``10``, ``11`` and ``12`` run one of those
+``--only-phase 6``, ``7``, ``8``, ``9``, ``10``, ``11``, ``12`` and ``13`` run one of those
 phases alone, for development (no kernel build, no result line; ``7``
 with ``[dl-trace]``, ``10`` with ``[mp-usc]`` and ``[usc-bid-track]`` at
 full depth, ``11`` with both enumerations; ``10`` and ``11`` also with
@@ -4237,6 +4257,500 @@ def phase_mesh(torch, dev):
     check(ks.halpern_sweep.launches > 0, "[phase12] the halpern kernel was never launched")
 
 
+# -- phase 13: the obs host tier ---------------------------------------------
+
+SOAK_REAL_SPEC = {        # [soak-real]: phase 9's [traffic] model and rate, Poisson
+    "traffic": {"process": "poisson", "rate_rps": 24.0, "duration_s": 20.0, "seed": 0,
+                "perturb": ["lmp"], "rho": 0.9, "sigma": 0.05},
+    "service": {"max_batch": 64, "max_wait_ms": 20.0, "inflight": 2, "warm_start": True},
+}
+SOAK_REAL_WARMUP = (1, 8)          # [soak-real]: lane counts run before the replay
+SOAK_SPIKE = {"traffic": {"duration_s": 6.0, "rate_rps": 150.0},     # tests/test_soak.py:528
+              "service_time": {"spikes": [[2.0, 6.0, 100.0]]}}
+SOAK_RESTART = {"traffic": {"duration_s": 1.0, "rate_rps": 60.0, "seed": 23},   # test_durability.py:510
+                "restart": {"enabled": True, "crash_at_s": 0.5, "snapshot_interval_s": 0.25}}
+SOAK_RTOL = 1e-12        # [soak]: floats of the card's virtual report vs the CPU's
+# [soak]: wall-clock fields of a report, not functions of virtual time
+# (the timeline's times come from the tracer's wall-clock stamps)
+SOAK_WALL_FIELDS = {("restart", "restart_recovery_ms"), ("restart_recovery_ms",),
+                    ("service", "durability", "recovery", "recovery_ms"),
+                    ("slo", "bundle_paths"), ("report_path",)}
+LEDGER_POINTS = 64       # [ledger]: phase 8's spec cut to 64 points in one chunk
+LEDGER_RUNS = 3
+SOLVERLOG_RTOL = 1e-9    # [solverlog]: card vs CPU columns, relative to max(1, |v|)
+NAN_GUARD_ITERS = 80     # [flight]: the NaN lane's PDLP max_iter (it can never converge)
+QUARANTINE_POINTS, QUARANTINE_POINT = 2, 1   # [flight]: a 2-point sweep, point 1 poisoned
+OBS_CLI_TIMEOUT_S = 300
+# the JAX CLI's JSON keys (tests/test_torch_obs_cli.py holds the port's
+# CLI to them on the CPU)
+JAX_SOAK_KEYS = {"schema", "virtual", "spec", "duration_s", "requests", "latency_ms",
+                 "queue_wait_ms", "slo", "drift", "timeline", "service", "faults", "restart",
+                 "fleet", "soak_p99_ms", "slo_burn_max", "fault_recovery_rate",
+                 "restart_recovery_ms", "lost_request_rate", "replica_lost_request_rate"}
+JAX_REPORT_KEYS = {"spans", "metrics", "events_buffered", "events_dropped"}
+
+
+def _soak_diff(got, want, path=()):
+    """The first field where two soak reports differ beyond ``SOAK_RTOL``
+    (wall-clock fields skipped, the timeline's batch count compared), or
+    None."""
+    if path in SOAK_WALL_FIELDS:
+        return None
+    if path == ("timeline",):
+        same = (got is None) == (want is None) and (
+            got is None or (set(got) == set(want) and got["n_batches"] == want["n_batches"]))
+        return None if same else path
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or list(got) != list(want):
+            return path
+        return next((d for k in want for d in [_soak_diff(got[k], want[k], path + (k,))] if d),
+                    None)
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            return path
+        return next((d for i, (g, w) in enumerate(zip(got, want))
+                     for d in [_soak_diff(g, w, path + (i,))] if d), None)
+    if isinstance(want, float) and not isinstance(want, bool):
+        ok = isinstance(got, float) and abs(got - want) <= SOAK_RTOL * abs(want)
+        return None if ok else path
+    return None if (got == want and type(got) is type(want)) else path
+
+
+def _soak_line(tag, r):
+    c, lat = r["requests"], r["latency_ms"]["streaming"]
+    return (f"[{tag}] {c['submitted']} requests ({c['done']} done, {c['timeout']} timeout, "
+            f"{c['error']} error, {c['shed']} shed, {c['hung']} hung) over "
+            f"{r['duration_s']:.2f} s; soak_p99_ms {r['soak_p99_ms']:.3f} (P2 p50 "
+            f"{lat['p50']:.3f}, p95 {lat['p95']:.3f}); slo_burn_max {r['slo_burn_max']}, "
+            f"{r['slo']['alerts_total']} alerts, {r['slo']['flight_bundles']} bundles")
+
+
+def soak_virtual(torch, dev, work):
+    """[soak]: ``DEFAULT_SPEC`` in virtual time on the card (the stub
+    program runs there) and on the CPU, equal in every virtual-time
+    field; the spike spec's one coalesced ``burn_rate`` bundle; the
+    crash-restart spec with every accepted request terminal."""
+    from dispatches_tpu_torch.obs import flight, soak
+
+    t0 = time.perf_counter()
+    card = soak.run_soak(device=dev)
+    t1 = time.perf_counter()
+    cpu = soak.run_soak(device="cpu")
+    t2 = time.perf_counter()
+    c = card["requests"]
+    print(_soak_line("soak", card) + f"; {t1 - t0:.2f} s on the card, {t2 - t1:.2f} s on the CPU")
+    check(c["hung"] == 0 and c["done"] == c["submitted"] == c["scheduled"] >= 1000,
+          f"[soak] not every request DONE: {c}")
+    diff = _soak_diff(card, cpu)
+    check(diff is None, f"[soak] the card's report differs from the CPU's at {diff}")
+    print(f"[soak] card vs CPU: equal in every virtual-time field (floats within {SOAK_RTOL:g})")
+    flight.reset()
+    try:
+        spike = soak.run_soak(SOAK_SPIKE, device=dev, flight_dir=str(work / "spike"))
+        kinds = [b["kind"] for b in flight.bundles(str(work / "spike"))]
+    finally:
+        flight.reset()
+    print(_soak_line("soak-spike", spike) + f"; bundle kinds {kinds}")
+    check(spike["slo_burn_max"] > 1.2 and kinds == ["burn_rate"]
+          and spike["slo"]["flight_bundles"] == 1,
+          "[soak] the spike did not fire exactly one coalesced burn_rate bundle")
+    rs = soak.run_soak(SOAK_RESTART, device=dev, out_dir=str(work / "restart"))
+    r = rs["restart"]
+    print(_soak_line("soak-restart", rs) + f"; crash at {r['crash_at_s']} s: {r['open_at_crash']} "
+          f"open, {r['recovered']} recovered, {r['lost']} lost, generation {r['generation']}, "
+          f"recovery {r['restart_recovery_ms']:.1f} ms")
+    check(rs["requests"]["hung"] == 0 and r["lost"] == 0
+          and r["recovered"] == r["open_at_crash"] > 0 and r["generation"] == 2,
+          "[soak] a request accepted before the crash did not end terminal")
+
+
+def soak_real(torch, dev, main_run, work):
+    """[soak-real]: ``run_soak(virtual=False)`` on ``time.monotonic``
+    against the real solver on the card, with the flight recorder and the
+    exporter armed; returns the path of the registry snapshot after it."""
+    from collections import Counter
+
+    from dispatches_tpu_torch.obs import export, flight, registry, soak
+    from dispatches_tpu_torch.serve import service as service_mod
+
+    nlp, lp = main_run["nlp"], main_run["lp"]
+    out, fdir = work / "soak-real", work / "soak-real-flight"
+    handles = []
+    submit = service_mod.SolveService.submit
+
+    def spy(self, *a, **k):
+        h = submit(self, *a, **k)
+        handles.append(h)
+        return h
+
+    errors0 = registry.counter("flight.errors").total()
+    evicted0 = registry.counter("flight.evicted").total()
+    flight.reset()
+    service_mod.SolveService.submit = spy
+    t0 = time.perf_counter()
+    try:
+        rep = soak.run_soak(SOAK_REAL_SPEC, nlp=nlp, virtual=False, out_dir=str(out),
+                            flight_dir=str(fdir), warmup_lanes=SOAK_REAL_WARMUP, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prom = (out / export.PROM_FILE).read_text()
+        fresh = export.render_prometheus()
+        snapshot = registry.default_registry().snapshot()
+        bundles = flight.bundles(str(fdir), full=True)
+    finally:
+        service_mod.SolveService.submit = submit
+        flight.reset()
+    c = rep["requests"]
+    ph = rep["latency_ms"]["posthoc"]
+    rps = c["done"] / rep["duration_s"]
+    print(_soak_line("soak-real", rep) + f"; {rps:.1f} requests/s, latency posthoc p50 "
+          f"{ph['p50']:.1f} / p95 {ph['p95']:.1f} / p99 {ph['p99']:.1f} ms; {wall:.1f} s wall")
+    for o in rep["slo"]["objectives"]:
+        print(f"[soak-real] slo {o['objective']}: target {o['target']:g}, burn_peak "
+              f"{o['burn_peak']:.3f}, firing {any(x['firing'] for x in o['rules'])}")
+    kinds = [b["kind"] for b in bundles]
+    m = rep["service"]
+    print(f"[soak-real] {m['batches']} batches, occupancy {m['occupancy_mean']:.3f}, warm hit "
+          f"rate {m['warm_start']['hit_rate']:.3f}, {m['warm_start']['mispredicts']} warm "
+          f"mispredicts; alerts {[a['objective'] for a in rep['slo']['alerts']]}; "
+          f"{len(bundles)} bundles kept (of at most {flight.MAX_BUNDLES}; "
+          f"{registry.counter('flight.evicted').total() - evicted0:g} evicted), by kind "
+          f"{dict(sorted(Counter(kinds).items()))}")
+    check(c["hung"] == 0 and c["done"] == c["submitted"] == c["scheduled"] > 0,
+          f"[soak-real] not every request DONE: {c}")
+    served = [h for h in handles[sum(SOAK_REAL_WARMUP):] if h.result().status == "DONE"]
+    ref = np.asarray([highs_objective(torch, nlp, lp, h.params, f"request {h.request_id}")
+                      for h in served[:N_HIGHS]])
+    got = np.asarray([h.result().obj for h in served[:N_HIGHS]])
+    err = np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)
+    print(f"[soak-real] {len(ref)} DONE objectives vs HiGHS: max rel err {err.max():.3e}")
+    check(len(ref) == N_HIGHS and err.max() <= IPM_RTOL,
+          f"[soak-real] objective error {err.max():.3e} > {IPM_RTOL}")
+    # metrics.prom: the final export's registry render, byte for byte,
+    # then the process start-stamp gauge
+    tail = prom[len(fresh):].splitlines()
+    check(prom.startswith(fresh) and len(tail) == 3
+          and tail[2] == (f'dispatches_tpu_process_start_us{{generation="1"}} '
+                          f'{export._fmt(export.process_start_us())}'),
+          "[soak-real] metrics.prom is not the registry's render")
+    for line in prom.splitlines():
+        if not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            float(value)
+            check(name.startswith("dispatches_tpu_"), f"[soak-real] bad series {line!r}")
+    records = [json.loads(x) for f in sorted(out.glob("telemetry-*.jsonl"))
+               for x in f.read_text().splitlines()]
+    print(f"[soak-real] metrics.prom {len(prom.splitlines())} lines, equal to a fresh render; "
+          f"{len(records)} JSONL export records")
+    check(len(records) >= 2, "[soak-real] fewer than two export records")
+    check(bundles and len(bundles) <= flight.MAX_BUNDLES
+          and all(k in flight.TRIGGER_KINDS and "plan" in b for k, b in zip(kinds, bundles)),
+          "[soak-real] no bundle, too many, or one of an unknown kind or without its plan "
+          "section")
+    check(registry.counter("flight.errors").total() == errors0, "[soak-real] flight.errors > 0")
+    path = work / "soak_real_snapshot.json"
+    path.write_text(json.dumps(snapshot))
+    return path
+
+
+def flight_kinds(torch, dev, main_run, work):
+    """[flight]: a bundle of each kind the card path reaches (deadline_miss
+    with the bucket's cost card, plan_error, nan_guard, quarantine); the
+    same run disarmed writes nothing.  The quarantine comes from the fault
+    layer poisoning one point of a sweep on the plan's fence."""
+    from dispatches_tpu_torch.faults import inject as faults
+    from dispatches_tpu_torch.obs import flight, profile
+    from dispatches_tpu_torch.serve import ServeOptions, SolveService
+    from dispatches_tpu_torch.sweep import STATUS_QUARANTINED, run_sweep
+
+    nlp, lmps, cfs = main_run["nlp"], main_run["lmps"], main_run["cfs"]
+
+    def run(tag):
+        t_run = time.perf_counter()
+        svc = SolveService(ServeOptions(max_batch=8, max_wait_ms=SERVE_WAIT_MS), device=dev)
+        ok = svc.submit(nlp, _flagship_params(nlp, lmps, cfs, 0))
+        svc.flush_all()
+        late = svc.submit(nlp, _flagship_params(nlp, lmps, cfs, 1), deadline_ms=0.001)
+        svc.flush_all()
+        faults.arm("serve.stage,times=1")
+        try:
+            bad = svc.submit(nlp, _flagship_params(nlp, lmps, cfs, 2))
+            svc.flush_all()
+        finally:
+            faults.reset()
+        p = _flagship_params(nlp, lmps, cfs, 3)
+        p["p"]["lmp"] = np.array(p["p"]["lmp"])
+        p["p"]["lmp"][5] = np.nan
+        os.environ["DISPATCHES_TPU_SANITIZE"] = "1"
+        try:
+            nan = svc.submit(nlp, p, options={"max_iter": NAN_GUARD_ITERS})
+            svc.flush_all()
+        finally:
+            del os.environ["DISPATCHES_TPU_SANITIZE"]
+        check([h.result().status for h in (ok, late, bad)] == ["DONE", "TIMEOUT", "ERROR"]
+              and nan.done(), f"[flight] {tag}: unexpected request statuses")
+        t_sweep = time.perf_counter()
+        faults.arm(f"plan.fence,poison_ids={QUARANTINE_POINT}")
+        try:
+            st = run_sweep(nlp, _sweep_spec(lmps[:QUARANTINE_POINTS]),
+                           store_dir=work / f"quarantine-{tag}",
+                           options=_sweep_options(chunk_size=QUARANTINE_POINTS, max_retries=1),
+                           device=dev)
+        finally:
+            faults.reset()
+        status = st.arrays()["status"]
+        print(f"[flight] {tag} run: serve part {t_sweep - t_run:.1f} s, quarantine sweep "
+              f"{time.perf_counter() - t_sweep:.1f} s")
+        check(status[QUARANTINE_POINT] == STATUS_QUARANTINED
+              and (np.delete(status, QUARANTINE_POINT) != STATUS_QUARANTINED).all(),
+              f"[flight] {tag}: point {QUARANTINE_POINT} was not quarantined alone "
+              f"({status.tolist()})")
+
+    fdir = work / "flight"
+    flight.reset()
+    profile.enable(True)
+    profile.reset()
+    t0 = time.perf_counter()
+    try:
+        flight.enable(str(fdir))
+        run("armed")
+        found = flight.bundles(str(fdir), full=True)
+        t1 = time.perf_counter()
+        flight.enable("")
+        writes = []
+        write = flight._write_bundle
+        flight._write_bundle = lambda *a, **k: writes.append(1) or write(*a, **k)
+        try:
+            run("disarmed")
+        finally:
+            flight._write_bundle = write
+        after = sorted(os.listdir(fdir))
+    finally:
+        flight.reset()
+        profile.enable(False)
+        profile.reset()
+    kinds = [b["kind"] for b in found]
+    by_kind = {}
+    for b in found:
+        by_kind.setdefault(b["kind"], b)
+    dm = by_kind.get("deadline_miss") or {}
+    card = dm.get("cost_card") or {}
+    print(f"[flight] armed run {t1 - t0:.1f} s: {len(found)} bundles, kinds {kinds}; "
+          f"deadline_miss request {dm.get('trigger', {}).get('request_id')} cost card "
+          f"{card.get('label')}#{card.get('count')} peak {card.get('peak_bytes')} B, plan section "
+          f"{ {k: v for k, v in (dm.get('plan') or {}).items() if k != 'timeline_tail'} }; "
+          f"disarmed run: {len(writes)} bundle writes, directory {len(after)} files")
+    check(set(kinds) >= {"deadline_miss", "plan_error", "nan_guard", "quarantine"},
+          f"[flight] missing kinds: {kinds}")
+    check(all(k in flight.TRIGGER_KINDS and "plan" in b for k, b in zip(kinds, found)),
+          "[flight] a bundle of an unknown kind or without its plan section")
+    check(card.get("label") == dm["trigger"]["label"]
+          and ((card.get("peak_bytes") or 0) > 0 or torch.device(dev).type == "cpu"),
+          "[flight] the deadline_miss bundle lacks its bucket's cost card")
+    qb = by_kind["quarantine"]["trigger"]
+    check(qb["label"] == "sweep.direct" and qb["detail"]["point"] == QUARANTINE_POINT,
+          f"[flight] the quarantine bundle does not name point {QUARANTINE_POINT}")
+    check(len(found) <= flight.MAX_BUNDLES, "[flight] the directory outgrew MAX_BUNDLES")
+    check(not writes and after == sorted(os.listdir(fdir)) and len(after) == len(found),
+          "[flight] the disarmed run wrote a bundle")
+
+
+def ledger_runs(torch, dev, main_run, work):
+    """[ledger]: with ``OBS_LEDGER_DIR`` set, phase 8's spec cut to 64
+    points in one chunk, three times; the gate soft-passes, then passes,
+    and fails on a copy with a fourth record at half the solves/s."""
+    from dispatches_tpu_torch.obs import ledger
+    from dispatches_tpu_torch.sweep import run_sweep
+
+    lmps = main_run["lmps"]
+    ldir = work / "ledger"
+    os.environ["DISPATCHES_TPU_OBS_LEDGER_DIR"] = str(ldir)
+    verdicts = []
+    try:
+        for i in range(LEDGER_RUNS):
+            run_sweep(main_run["nlp"], _sweep_spec(lmps[:LEDGER_POINTS]),
+                      store_dir=work / f"ledger-store-{i}",
+                      options=_sweep_options(chunk_size=LEDGER_POINTS), device=dev)
+            verdicts.append(ledger.check_regressions(dir=ldir))
+    finally:
+        del os.environ["DISPATCHES_TPU_OBS_LEDGER_DIR"]
+    recs = ledger.load(ldir)
+    for r in recs:
+        print(f"[ledger] {r['kind']}/{r['workload']}/{r['backend']}: {r['metrics']} {r['extra']}")
+    check(len(recs) == LEDGER_RUNS and all(
+        r["backend"] == torch.device(dev).type
+        and {"solves_per_sec", "pdhg_iters_mean", "compile_count"} <= set(r["metrics"])
+        for r in recs), f"[ledger] records lack backend {torch.device(dev).type} or a metric")
+    check(all(v["ok"] for v in verdicts) and [len(v["insufficient"]) for v in verdicts] == [1, 1, 0]
+          and verdicts[-1]["checked"], f"[ledger] gate verdicts {verdicts}")
+    bad = work / "ledger-regressed"
+    bad.mkdir()
+    (bad / ledger.LEDGER_FILE).write_bytes((ldir / ledger.LEDGER_FILE).read_bytes())
+    fourth = dict(recs[-1], metrics=dict(recs[-1]["metrics"],
+                                         solves_per_sec=recs[-1]["metrics"]["solves_per_sec"] / 2))
+    ledger.append(fourth, dir=bad)
+    regressed = ledger.check_regressions(dir=bad)
+    print("[ledger] " + ledger.format_check(verdicts[-1]).strip().replace("\n", " | "))
+    print("[ledger] half the solves/s: " + ledger.format_check(regressed).strip().replace("\n", " | "))
+    check(not regressed["ok"] and regressed["regressions"][0]["metric"] == "solves_per_sec",
+          "[ledger] the gate passed a record at half the solves/s")
+    return ldir
+
+
+def solverlog_tables(torch, dev, main_run):
+    """[solverlog]: the PDLP, IPM and Newton traces decoded on the card
+    and on the CPU: equal rows and ``it`` columns, floats within
+    ``SOLVERLOG_RTOL`` of max(1, |v|)."""
+    from dispatches_tpu_torch.case_studies.fossil import storage_integrated as isp
+    from dispatches_tpu_torch.core.graph import Flowsheet
+    from dispatches_tpu_torch.entry import _build_nlp, _lmp_batch
+    from dispatches_tpu_torch.models.salt_hx import SaltSteamHX
+    from dispatches_tpu_torch.obs import solverlog
+    from dispatches_tpu_torch.solvers import (IPMOptions, PDLPOptions, make_ipm_solver,
+                                              make_pdlp_solver)
+    from dispatches_tpu_torch.solvers.newton import make_newton_solver
+
+    nlp, lmps, cfs = main_run["nlp"], main_run["lmps"], main_run["cfs"]
+    enlp = _build_nlp()
+    d = enlp.default_params()
+    entry_p = {"p": {**d["p"], "lmp": _lmp_batch(8, T)[0]}, "fixed": d["fixed"]}
+    case, (side, w_in, w_out, steam, F_salt, T_in, area) = next(iter(isp.HX_UNIT_CASES.items()))
+    fs = Flowsheet(horizon=1)
+    hx = SaltSteamHX(fs, "hx", salt_side=side, water_in_phase=w_in, water_out_phase=w_out)
+    for var, val in ((hx.water_in.flow_mol, steam["F"]), (hx.water_in.enth_mol, steam["h"]),
+                     (hx.water_in.pressure, steam["P"]), (hx.salt_in.flow_mass, F_salt),
+                     (hx.salt_in.temperature, T_in), (hx.salt_in.pressure, 101325.0),
+                     (hx.area, area)):
+        fs.fix(var, val)
+    isp._hx_sweep(fs, hx, dict(steam), F_salt, T_in, area, water_hot=side == "tube")
+    hnlp = fs.compile()
+    runs = (("pdlp", solverlog.decode_pdlp, _flagship_params(nlp, lmps, cfs, 0),
+             lambda d_: make_pdlp_solver(nlp, PDLPOptions(tol=1e-8, dtype="float64"), trace=True,
+                                         device=d_)),
+            ("ipm", solverlog.decode_ipm, entry_p,
+             lambda d_: make_ipm_solver(enlp, IPMOptions(max_iter=60), trace=True, device=d_)),
+            (f"newton[{case}]", solverlog.decode_newton, hnlp.default_params(),
+             lambda d_: make_newton_solver(hnlp, trace=True, device=d_)))
+    for name, decode, params, make in runs:
+        t0 = time.perf_counter()
+        res, tr = make(dev)(params)
+        card = decode(tr, res)
+        t1 = time.perf_counter()
+        res, tr = make("cpu")(params)
+        cpu = decode(tr, res)
+        t2 = time.perf_counter()
+        worst = 0.0
+        for k, w in cpu.columns.items():
+            g = card.columns[k]
+            if np.issubdtype(w.dtype, np.integer):
+                check(np.array_equal(g, w), f"[solverlog] {name}: column {k} differs")
+            else:
+                worst = max(worst, float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1.0),
+                                                initial=0.0)))
+        print(f"[solverlog] {name}: {card.iterations} rows on the card ({t1 - t0:.2f} s), "
+              f"{cpu.iterations} on the CPU ({t2 - t1:.2f} s), columns {list(card.columns)}, "
+              f"max card vs CPU {worst:.3e}; last row card {card.tail(1)} CPU {cpu.tail(1)}")
+        check(card.iterations == cpu.iterations > 0, f"[solverlog] {name}: rows differ")
+        check(worst <= SOLVERLOG_RTOL, f"[solverlog] {name}: card vs CPU {worst:.3e}")
+
+
+def obs_cli(torch, work, snapshot, ledger_dir):
+    """[obs-cli]: ``python -m dispatches_tpu_torch.obs`` in child Pythons
+    on the card, all at once; each exits as the JAX CLI would on the same
+    inputs and prints the JAX CLI's JSON keys."""
+    from dispatches_tpu_torch.obs import ledger, slo
+
+    with open(snapshot) as f:
+        slo_rc = 1 if slo.violations(slo.evaluate(slo.load_spec(), json.load(f))) else 0
+    gate_rc = 0 if ledger.check_regressions(dir=ledger_dir)["ok"] else 1
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("DISPATCHES_TPU_OBS", "DISPATCHES_TPU_SANITIZE"))}
+    env["PYTHONUNBUFFERED"] = "1"
+    runs = {"soak": (["--soak", "--json", "--duration", "2"], 0),
+            "report": (["--report", "--json"], 0),
+            "prom": (["--prom"], 0),
+            "slo": (["--slo", "--check", "--metrics-file", str(snapshot)], slo_rc),
+            "ledger": (["--ledger", "--check-regressions", "--ledger-dir", str(ledger_dir)],
+                       gate_rc)}
+    procs = {}
+    t0 = time.perf_counter()
+    for name, (argv, _) in runs.items():
+        out = open(work / f"cli-{name}.out", "w+")
+        procs[name] = (subprocess.Popen([sys.executable, "-m", "dispatches_tpu_torch.obs", *argv],
+                                        stdout=out, stderr=subprocess.STDOUT, env=env, cwd=ROOT),
+                       out)
+    try:
+        for name, (proc, out) in procs.items():
+            try:
+                rc = proc.wait(timeout=max(1.0, t0 + OBS_CLI_TIMEOUT_S - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                fail(f"[obs-cli] --{name} still running after {OBS_CLI_TIMEOUT_S} s")
+            out.seek(0)
+            text = out.read()
+            argv, want_rc = runs[name]
+            if rc != want_rc:
+                sys.stdout.write(text[-4000:])
+            check(rc == want_rc, f"[obs-cli] {' '.join(argv)} exited {rc}, the JAX CLI {want_rc}")
+            if name == "soak":
+                keys = set(json.loads(text))
+                check(keys == JAX_SOAK_KEYS, f"[obs-cli] --soak keys {sorted(keys ^ JAX_SOAK_KEYS)}")
+                summary = f"keys equal, {json.loads(text)['requests']['done']} done"
+            elif name == "report":
+                payload = json.loads(text)
+                check(set(payload) == JAX_REPORT_KEYS, f"[obs-cli] --report keys {sorted(payload)}")
+                summary = f"keys equal, spans {sorted(payload['spans'])}"
+            elif name == "prom":
+                lines = [x for x in text.splitlines() if x and not x.startswith("#")]
+                check(lines and all(x.startswith("dispatches_tpu_") for x in lines),
+                      "[obs-cli] --prom printed a line that is not a series")
+                summary = f"{len(lines)} series"
+            else:
+                summary = text.strip().splitlines()[-1]
+            print(f"[obs-cli] {' '.join(argv)}: exit {rc} ({summary})")
+    finally:
+        for proc, out in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    print(f"[obs-cli] five CLIs in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_obs(torch, dev):
+    """Phase 13, with the sweep kernels' counts set to 0 before and read
+    after (no kernel lies on this path): the obs host tier on the card."""
+    import tempfile
+
+    from dispatches_tpu_torch.kernels import pdhg_sweep as ks
+
+    ks.avg_sweep.launches = 0
+    ks.halpern_sweep.launches = 0
+    t0 = time.perf_counter()
+    main_run = flagship(torch, dev)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="phase13-") as tmp:
+        work = Path(tmp)
+        got = {}
+        parts = (("soak-real", lambda: got.update(snapshot=soak_real(torch, dev, main_run, work))),
+                 ("soak", lambda: soak_virtual(torch, dev, work)),
+                 ("flight", lambda: flight_kinds(torch, dev, main_run, work)),
+                 ("ledger", lambda: got.update(ledger=ledger_runs(torch, dev, main_run, work))),
+                 ("solverlog", lambda: solverlog_tables(torch, dev, main_run)),
+                 ("obs-cli", lambda: obs_cli(torch, work, got["snapshot"], got["ledger"])))
+        walls = []
+        for name, run in parts:
+            t_part = time.perf_counter()
+            run()
+            walls.append(f"{name} {time.perf_counter() - t_part:.1f}")
+    print(f"[phase13] {time.perf_counter() - t0:.1f} s ({', '.join(walls)} s); sweep kernel "
+          f"launches during it: halpern {ks.halpern_sweep.launches}, avg {ks.avg_sweep.launches}")
+    check(ks.halpern_sweep.launches == 0 and ks.avg_sweep.launches == 0,
+          "[phase13] a sweep kernel was launched on the obs path")
+
+
+
 # The whole run drives these groups of phases in child processes (this
 # script with a private flag), started after phase 3's kernel timings and
 # running beside phases 4, 5, 8 and 9 in the main process: every phase
@@ -4246,14 +4760,16 @@ def phase_mesh(torch, dev):
 CHILD_FLAG = "--phase-child"
 CHILD_GROUPS = (("6",), ("7",), ("10", "salt-hx", "isp", "isp-init", "isp-analysis"),
                 ("10", "mp-eval", "usc-bid-track", "mp-usc"),
-                ("11",), ("12",))
+                ("11",), ("12",), ("13",))
 CHILD_THREADS = "2"        # BLAS and torch threads per child (8 host cores in all)
 WHOLE_RUN_S = 1140.0       # the run fails itself past this, inside the 1,200 s limit
 
 
 def whole_run_phase(torch, dev, phase, parts=()):
-    """Phase 6, 7, 10, 11 (``parts`` of it) or 12 at the whole run's depth."""
-    if phase == "12":
+    """Phase 6, 7, 10, 11 (``parts`` of it), 12 or 13 at the whole run's depth."""
+    if phase == "13":
+        phase_obs(torch, dev)
+    elif phase == "12":
         phase_mesh(torch, dev)
     elif phase == "6":
         phase_hydrogen(torch, dev, pem_batch_model(torch, dev))
@@ -4353,7 +4869,8 @@ def main():
                                              parts=sys.argv[3:] or STORAGE_PARTS),
              "11": lambda dev: phase_designs(torch, dev, only=True,
                                              parts=sys.argv[3:] or DESIGN_PARTS),
-             "12": lambda dev: phase_mesh(torch, dev)}
+             "12": lambda dev: phase_mesh(torch, dev),
+             "13": lambda dev: phase_obs(torch, dev)}
     part_names = {"10": STORAGE_PARTS, "11": DESIGN_PARTS}
     if sys.argv[1:2] == ["--only-phase"]:
         # a development run of one phase alone: no kernel build, no result

@@ -90,14 +90,43 @@ REGISTERED_FLAGS = {
     "signature of a plan program records label, count, backend, shapes, "
     "argument/output bytes, CUDA peak bytes and matmul flops "
     "(obs.profile; read when a program is built)",
-    "OBS_EXPORT_DIR": "continuous telemetry export in the JAX package; "
-    "not ported yet, so a set value makes SolveService raise "
-    "NotImplementedError",
-    "OBS_FLIGHT_DIR": "flight-recorder bundles in the JAX package; not "
-    "ported yet, so a set value makes SolveService and run_sweep raise "
-    "NotImplementedError",
-    "OBS_LEDGER_DIR": "perf-ledger directory in the JAX package; not "
-    "ported yet, so a set value makes run_sweep raise NotImplementedError",
+    "OBS_EXPORT_DIR": "continuous-exporter output directory; setting "
+    "it arms the periodic JSONL time-series + metrics.prom writer that "
+    "SolveService ticks from submit/poll (obs.export; unset = exporter "
+    "disarmed, zero writes)",
+    "OBS_EXPORT_INTERVAL_S": "continuous-exporter seconds between "
+    "interval records on the service clock (obs.export; default 10)",
+    "OBS_EXPORT_MAX_FILES": "continuous-exporter JSONL rotation: files "
+    "kept before the oldest is deleted (obs.export; default 8)",
+    "OBS_EXPORT_MAX_RECORDS": "continuous-exporter JSONL rotation: "
+    "records per file before starting the next (obs.export; default "
+    "1024)",
+    "OBS_FLIGHT_DIR": "flight-recorder bundle directory; setting it "
+    "arms the trigger hooks (deadline miss, quarantine/refine-fail, "
+    "nan-guard trip, solver non-convergence, burn-rate alerts) in "
+    "serve/sweep/runtime (obs.flight; unset = recorder disarmed, zero "
+    "writes)",
+    "OBS_FLIGHT_COOLDOWN_S": "flight-recorder per-trigger-kind "
+    "cooldown override in seconds, applied to every kind (obs.flight; "
+    "unset = per-kind defaults: 30 s for burn_rate, 0 for the "
+    "event-shaped kinds)",
+    "OBS_LEDGER_DIR": "perf-ledger directory; setting it also enables "
+    "the automatic ledger writes from the sweep engine (obs.ledger; "
+    "unset = no writes)",
+    "OBS_LEDGER_TOL": "perf-ledger regression tolerance as a fraction "
+    "of the trailing-window median (obs.ledger --check-regressions; "
+    "default 0.3)",
+    "OBS_SLO": "default SLO spec JSON path for `python -m "
+    "dispatches_tpu_torch.obs --slo` (obs.slo; unset = built-in example "
+    "objectives)",
+    "SOAK_SPEC": "default soak spec JSON path for `python -m "
+    "dispatches_tpu_torch.obs --soak` (obs.soak; unset = built-in "
+    "DEFAULT_SPEC; `--spec` wins over the flag)",
+    "SOAK_DURATION_S": "override the soak traffic duration in seconds "
+    "for `--soak` (obs.soak; `--duration` wins over the flag)",
+    "SOAK_REPORT_DIR": "directory `--soak` writes soak_report.json "
+    "and exporter records into (obs.soak; `--out` wins; unset with no "
+    "--out = report to stdout only)",
     "SWEEP_CHUNK": "sweep-engine points per chunk == checkpoint/resume "
     "granularity (sweep.SweepOptions.from_env)",
     "SWEEP_MAX_RETRIES": "sweep-engine point-wise retry budget before a "

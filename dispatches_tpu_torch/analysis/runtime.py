@@ -72,8 +72,9 @@ def nan_guard(label: str, *tensors) -> None:
     """Opt-in non-finite check on intermediate iterates.
 
     No-op unless DISPATCHES_TPU_SANITIZE is set.  When set, records
-    ``label`` for ``drain_sanitize_events`` and warns if any tensor holds
-    a NaN or Inf.  Safe inside ``torch.func`` transforms."""
+    ``label`` for ``drain_sanitize_events``, warns and triggers a
+    ``nan_guard`` flight bundle (when the recorder is armed) if any
+    tensor holds a NaN or Inf.  Safe inside ``torch.func`` transforms."""
     if not sanitize_enabled():
         return
     flat = [_unwrapped(t) for t in tensors if t is not None]
@@ -86,6 +87,13 @@ def nan_guard(label: str, *tensors) -> None:
         SanitizeWarning,
         stacklevel=2,
     )
+    try:  # lazy: the analysis layer imports nothing of obs at load
+        from dispatches_tpu_torch.obs import flight
+
+        if flight.enabled():
+            flight.trigger("nan_guard", label=label, detail={"guard": label})
+    except Exception:
+        pass
 
 
 def drain_sanitize_events() -> List[str]:

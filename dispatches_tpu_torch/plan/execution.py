@@ -932,11 +932,20 @@ class ExecutionPlan:
             time.sleep(min(timeout_s / 20.0, 0.001))
 
     def _hang_escape(self, ticket: PlanTicket) -> None:
-        """A fence exceeded its budget: shrink the dispatch window now
-        (a hang is maximal congestion) and raise the hang into the
-        failure domain."""
+        """A fence exceeded its budget: flight-record the wedge, shrink
+        the dispatch window now (a hang is maximal congestion) and raise
+        the hang into the failure domain."""
         if self._ctrl is not None:
             self._ctrl.on_backoff()
+        from dispatches_tpu_torch.obs import flight as obs_flight
+
+        if obs_flight.enabled():
+            obs_flight.trigger(
+                "plan_hang", label=ticket.label,
+                detail={"plan": self.plan_id, "seq": ticket.seq,
+                        "lanes": ticket.lanes, "n_live": ticket.n_live,
+                        "fence_timeout_ms": float(self.options.fence_timeout_ms),
+                        "request_ids": list(ticket.request_ids or ())})
         raise PlanError(ticket.label, ticket.seq, kind="hang",
                         guilty=(), attempts=0)
 

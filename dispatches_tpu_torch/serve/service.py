@@ -68,10 +68,18 @@ clean-shutdown marker.  Disarmed, the service holds no journal object.
 the mesh run as lane shards, one per mesh entry.  With
 ``DISPATCHES_TPU_OBS_PROFILE`` on, each bucket program's first call of a
 lane count records a cost card, which seeds the admission estimate
-before the first dispatch completes.  Not ported yet, and raising
-``NotImplementedError`` when asked for: continuous export and the flight
-recorder (``DISPATCHES_TPU_OBS_EXPORT_DIR``,
-``DISPATCHES_TPU_OBS_FLIGHT_DIR``; ``ROADMAP.md`` item 12).
+before the first dispatch completes.
+
+Telemetry
+---------
+``DISPATCHES_TPU_OBS_EXPORT_DIR`` arms a continuous exporter
+(``obs/export.py``) at construction, ticked from ``submit``/``poll`` on
+the service clock (or attach one with :meth:`SolveService.attach_exporter`).
+``DISPATCHES_TPU_OBS_FLIGHT_DIR`` arms the flight recorder
+(``obs/flight.py``): deadline misses, non-converged lanes, dispatch
+failures, warm mispredicts, degradation rungs and load shedding each
+dump a bundle.  Disarmed, each hook is one ``is None`` or ``enabled()``
+check before any context is built.
 """
 
 from __future__ import annotations
@@ -91,6 +99,8 @@ from dispatches_tpu_torch.analysis.runtime import sanitized_lock
 from dispatches_tpu_torch.faults import inject as _faults
 from dispatches_tpu_torch.learn import predictor as learn_predictor
 from dispatches_tpu_torch.learn import train as learn_train
+from dispatches_tpu_torch.obs import export as obs_export
+from dispatches_tpu_torch.obs import flight as obs_flight
 from dispatches_tpu_torch.obs import registry as obs_registry
 from dispatches_tpu_torch.obs import trace as obs_trace
 from dispatches_tpu_torch.plan import ExecutionPlan, PlanOptions
@@ -464,17 +474,6 @@ class _Bucket:
         return self.program.compiles
 
 
-def _check_not_deferred() -> None:
-    """The service options whose modules are not ported raise instead of
-    doing nothing."""
-    for flag, what in (("OBS_EXPORT_DIR", "continuous telemetry export (obs/export.py)"),
-                       ("OBS_FLIGHT_DIR", "the flight recorder (obs/flight.py)")):
-        if os.environ.get(flag_name(flag), ""):
-            raise NotImplementedError(
-                f"DISPATCHES_TPU_{flag} arms {what}, which is not ported yet "
-                "(ROADMAP.md queue 1, item 12: the rest of obs/)")
-
-
 class SolveService:
     """Micro-batching solve service over the lane-batched solvers.
 
@@ -502,7 +501,6 @@ class SolveService:
                  recover_dir: Optional[str] = None,
                  recover_nlp=None, recover_base_solver=None,
                  snapshot_interval_s: Optional[float] = None):
-        _check_not_deferred()
         self.options = options if options is not None else ServeOptions.from_env()
         self._clock = clock
         if self.options.plan is not None:
@@ -570,8 +568,18 @@ class SolveService:
         self._obs_deadline_missed = _deadline.labeled(event="missed")
         self._obs_queue_depth = obs_registry.gauge(
             "serve.queue_depth", "solve-service pending requests across "
-            "all buckets")
+            "all buckets (flight bundles snapshot it at trigger time)")
         self._obs_queue_depth.set(0.0)
+        # continuous export: armed by OBS_EXPORT_DIR and ticked from
+        # submit/poll on the service's own clock — disarmed, the hot path
+        # pays one `is None` check
+        self._exporter = None
+        if obs_export.enabled():
+            try:
+                self._exporter = obs_export.ContinuousExporter(
+                    clock=self._clock)
+            except Exception:
+                self._exporter = None
         # durability: write-ahead journal + learned-state snapshots share
         # one directory; disarmed, the hot paths pay one `is None` branch
         self.generation = 1
@@ -609,6 +617,11 @@ class SolveService:
                 durable_dir, interval_s=float(snapshot_interval_s))
         if replayed is not None:
             self._resubmit(replayed, recover_nlp, recover_base_solver, t0_recover)
+        if self.generation > 1:
+            try:
+                obs_export.set_restart_generation(self.generation)
+            except Exception:
+                pass
 
     def _resubmit(self, replayed, nlp, base_solver, t0: float) -> None:
         """Constructor-time recovery: resubmit every request the journal
@@ -641,6 +654,12 @@ class SolveService:
             "torn_records": replayed.torn,
             "recovery_ms": (time.perf_counter() - t0) * 1e3,
         }
+
+    def attach_exporter(self, exporter) -> None:
+        """Attach a caller-built :class:`obs.export.ContinuousExporter`
+        (tests and the soak pass one on their own clock; production arms
+        one through ``DISPATCHES_TPU_OBS_EXPORT_DIR`` at construction)."""
+        self._exporter = exporter
 
     # -- bucket resolution -------------------------------------------------
 
@@ -807,6 +826,8 @@ class SolveService:
         self._obs_queue_depth.set(float(depth))
         if should_flush:
             self._flush_bucket(bucket)
+        if self._exporter is not None:
+            self._exporter.maybe_export(self._clock())
         return handle
 
     def _shed_request(self, bucket: _Bucket, params, now: float,
@@ -831,6 +852,14 @@ class SolveService:
                 "serve.request", handle._t_submit_us,
                 t_us - handle._t_submit_us, request_id=handle.request_id,
                 bucket=label, status=RequestStatus.SHED)
+        if obs_flight.enabled():
+            obs_flight.trigger(
+                "shed", request_id=handle.request_id, bucket=label,
+                label=f"serve.{label}",
+                solver_options={"kind": bucket.kind,
+                                "precision": bucket.precision},
+                detail={"queue_depth": self._queue_depth(),
+                        "shed_queue_depth": self.options.shed_queue_depth})
         return handle
 
     def solve(self, nlp, params=None, x0=None, **submit_kw):
@@ -864,6 +893,8 @@ class SolveService:
         for bucket in self._buckets_by_slack(now):
             while bucket.pending and now >= self._close_due_at(bucket, now):
                 n += self._flush_bucket(bucket)
+        if self._exporter is not None:
+            self._exporter.maybe_export(now)
         if self._snapshots is not None:
             try:
                 self._snapshots.maybe_snapshot(self, now)
@@ -1010,6 +1041,15 @@ class SolveService:
                         "serve.request", r._t_submit_us,
                         t_us - r._t_submit_us, request_id=r.request_id,
                         bucket=label, status=RequestStatus.TIMEOUT)
+                if obs_flight.enabled():
+                    obs_flight.trigger(
+                        "deadline_miss", request_id=r.request_id,
+                        bucket=label, label=f"serve.{label}",
+                        params_fingerprint=request_fingerprint(r.params),
+                        solver_options={"kind": bucket.kind,
+                                        "precision": bucket.precision},
+                        detail={"status": RequestStatus.TIMEOUT,
+                                "waited_ms": (now - r.submitted_at) * 1e3})
             else:
                 live.append(r)
         if self._journal is not None and timed_out:
@@ -1090,18 +1130,27 @@ class SolveService:
                 restage=_restage)
         except Exception as exc:  # noqa: BLE001 — no-hang contract
             _faults.note_recovered(exc)
-            self._fail_requests(bucket, live)
+            self._fail_requests(bucket, live, exc)
             return n, None
         return n, ticket
 
     def _fail_requests(self, bucket: _Bucket,
-                       requests: Sequence[SolveHandle]) -> None:
+                       requests: Sequence[SolveHandle], exc) -> None:
         """No-hang guarantee: every handle of a failed dispatch path
-        completes with a terminal ``ERROR``."""
+        completes with a terminal ``ERROR``; ``exc`` is the failure,
+        named in the flight bundle."""
         end = self._clock()
         tracing = obs_trace.enabled()
+        label = bucket.stats.label
         for r in requests:
             self._complete_error(bucket, r, end, tracing)
+        if obs_flight.enabled():
+            obs_flight.trigger(
+                "plan_error", bucket=label, label=f"serve.{label}",
+                solver_options={"kind": bucket.kind,
+                                "precision": bucket.precision},
+                detail={"error": repr(exc),
+                        "request_ids": [r.request_id for r in requests]})
 
     def _complete_error(self, bucket: _Bucket, r: SolveHandle,
                         end: float, tracing: bool) -> None:
@@ -1126,7 +1175,18 @@ class SolveService:
         if getattr(bucket, attr):
             return
         setattr(bucket, attr, True)
-        self._obs_degrade.inc(rung=rung, bucket=bucket.stats.label)
+        label = bucket.stats.label
+        self._obs_degrade.inc(rung=rung, bucket=label)
+        if obs_flight.enabled():
+            obs_flight.trigger(
+                "degrade", bucket=label, label=f"serve.{label}",
+                solver_options={"kind": bucket.kind,
+                                "precision": bucket.precision},
+                detail={"rung": rung,
+                        "consecutive_mispredicts": (
+                            bucket.predict_consec_mispredicts
+                            if rung == "predict_knn"
+                            else bucket.warm_consec_mispredicts)})
 
     def _degrade_precision(self, bucket: _Bucket) -> None:
         """Degradation rung 2: repeated refine-fails mean the bf16 inner
@@ -1147,6 +1207,14 @@ class SolveService:
         # a first-class bucket: poll/flush_all/queue-depth walk _buckets
         self._buckets[("degraded", label)] = twin
         self._obs_degrade.inc(rung="precision", bucket=bucket.stats.label)
+        if obs_flight.enabled():
+            obs_flight.trigger(
+                "degrade", bucket=bucket.stats.label,
+                label=f"serve.{bucket.stats.label}",
+                solver_options={"kind": bucket.kind,
+                                "precision": bucket.precision},
+                detail={"rung": "precision", "to": "f32",
+                        "refine_fails": bucket.refine_fails})
 
     def _complete_batch(self, bucket: _Bucket, live: List[SolveHandle],
                         lanes: int, dispatch_us: float,
@@ -1169,11 +1237,14 @@ class SolveService:
         res = ticket.result
         err = ticket.error
         if res is None:
-            self._fail_requests(bucket, live)
+            cause = err.cause if err is not None else RuntimeError(
+                "batch completed with no result")
+            self._fail_requests(bucket, live, cause)
             return
         guilty = frozenset(err.guilty) if err is not None else frozenset()
         # one device→host copy per field the bookkeeping reads
         objs = _np(res.obj)
+        flight_on = obs_flight.enabled()
         warm = bucket.warm and not bucket.warm_fallback
         kinds = iters_arr = xs_h = zs_h = None
         if warm:
@@ -1183,7 +1254,7 @@ class SolveService:
         refine_watch = (bucket.precision == "bf16x-f32"
                         and bucket.redirect is None)
         conv = None
-        if warm or refine_watch:
+        if flight_on or warm or refine_watch:
             conv_arr = getattr(res, "converged", None)
             if conv_arr is not None:
                 conv = _np(conv_arr).reshape(-1)
@@ -1198,6 +1269,16 @@ class SolveService:
             if i in guilty:
                 # its slot in `res` is NaN filler: fail exactly this one
                 self._complete_error(bucket, r, end, tracing)
+                if flight_on:
+                    obs_flight.trigger(
+                        "plan_error", request_id=r.request_id,
+                        bucket=label, label=f"serve.{label}",
+                        params_fingerprint=request_fingerprint(r.params),
+                        solver_options={"kind": bucket.kind,
+                                        "precision": bucket.precision},
+                        detail={"lane": i,
+                                "error": (repr(err.cause)
+                                          if err is not None else None)})
                 continue
             n_done += 1
             done_ids.append(r.request_id)
@@ -1209,8 +1290,10 @@ class SolveService:
             bucket.obs_latency.observe(latency)
             bucket.stats.record_solved()
             self._solved += 1
+            missed_deadline = (r.deadline_at is not None
+                               and end > r.deadline_at)
             if r.deadline_at is not None:
-                if end > r.deadline_at:
+                if missed_deadline:
                     self._deadline_missed += 1
                     self._obs_deadline_missed.inc()
                 else:
@@ -1229,6 +1312,22 @@ class SolveService:
                     "serve.request", r._t_submit_us,
                     end_us - r._t_submit_us, request_id=r.request_id,
                     bucket=label, status=RequestStatus.DONE)
+            if flight_on and (missed_deadline
+                              or (conv is not None and i < conv.size
+                                  and not bool(conv[i]))):
+                obs_flight.trigger(
+                    "deadline_miss" if missed_deadline
+                    else "solver_nonconverged",
+                    request_id=r.request_id, bucket=label,
+                    label=f"serve.{label}",
+                    params_fingerprint=request_fingerprint(r.params),
+                    solver_options={"kind": bucket.kind,
+                                    "precision": bucket.precision},
+                    detail={"latency_ms": latency,
+                            "obj": float(objs[i]),
+                            "converged": (None if conv is None
+                                          or i >= conv.size
+                                          else bool(conv[i]))})
             if (refined is not None and i < conv.size
                     and not bool(conv[i]) and i < refined.size
                     and float(refined[i]) > 0):
@@ -1261,14 +1360,26 @@ class SolveService:
             if kind_i == START_PREDICTED:
                 bucket.predict_consec_mispredicts += 1
                 self._obs_predict_mispredicts.inc(bucket=label)
+            else:
+                bucket.warm_consec_mispredicts += 1
+            if obs_flight.enabled():
+                obs_flight.trigger(
+                    "warm_mispredict", request_id=r.request_id,
+                    bucket=label, label=f"serve.{label}",
+                    params_fingerprint=request_fingerprint(r.params),
+                    solver_options={"kind": bucket.kind,
+                                    "precision": bucket.precision},
+                    detail={"start_kind": START_KIND_NAMES[kind_i],
+                            "iters": it_i,
+                            "cold_iters_ema":
+                                bucket.warm_guard.cold_iters_ema})
+            if kind_i == START_PREDICTED:
                 if (bucket.predict_consec_mispredicts
                         >= self.options.degrade_mispredicts):
                     self._degrade(bucket, "predict_knn")
-            else:
-                bucket.warm_consec_mispredicts += 1
-                if (bucket.warm_consec_mispredicts
-                        >= self.options.degrade_mispredicts):
-                    self._degrade(bucket, "warm_cold")
+            elif (bucket.warm_consec_mispredicts
+                    >= self.options.degrade_mispredicts):
+                self._degrade(bucket, "warm_cold")
         elif kind_i == START_PREDICTED:
             bucket.predict_consec_mispredicts = 0
         else:

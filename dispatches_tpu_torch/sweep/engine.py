@@ -20,9 +20,10 @@ behind the same spec:
   :class:`~dispatches_tpu_torch.serve.SolveService` (shared with live
   traffic, or a private warm-start-free instance).
 
-The observability flags whose modules are not ported yet
-(``DISPATCHES_TPU_OBS_FLIGHT_DIR``, ``_OBS_LEDGER_DIR``; ``ROADMAP.md``
-item 12) raise ``NotImplementedError`` before the first chunk runs.
+Telemetry: with ``DISPATCHES_TPU_OBS_FLIGHT_DIR`` set, a quarantined or
+refine-failed point dumps a flight bundle (``obs/flight.py``); with
+``DISPATCHES_TPU_OBS_LEDGER_DIR`` set, a finished run appends one record
+to the perf ledger (``obs/ledger.py``), never failing the sweep.
 
 Device: a sweep runs on ``device`` (``cuda`` unless the caller passes
 ``device="cpu"``); a caller-owned ``plan=`` or ``service=`` brings its
@@ -54,6 +55,7 @@ import torch
 from dispatches_tpu_torch import resolve_device
 from dispatches_tpu_torch.analysis.flags import flag_name
 from dispatches_tpu_torch.faults import inject as _faults
+from dispatches_tpu_torch.obs import flight as obs_flight
 from dispatches_tpu_torch.obs import registry as obs_registry
 from dispatches_tpu_torch.obs import trace as obs_trace
 from dispatches_tpu_torch.plan import PlanError
@@ -109,17 +111,6 @@ class SweepOptions:
             env["result_dir"] = raw
         env.update(overrides)
         return cls(**env)
-
-
-def _check_not_deferred() -> None:
-    """The observability flags whose modules are not ported raise, before
-    the sweep touches its store, instead of doing nothing."""
-    for flag, what in (("OBS_FLIGHT_DIR", "the flight recorder (obs/flight.py)"),
-                       ("OBS_LEDGER_DIR", "the perf ledger (obs/ledger.py)")):
-        if os.environ.get(flag_name(flag), ""):
-            raise NotImplementedError(
-                f"DISPATCHES_TPU_{flag} arms {what}, which is not ported yet "
-                "(ROADMAP.md queue 1, item 12: the rest of obs/)")
 
 
 def _resolve_solver(nlp, solver, solver_options, device):
@@ -248,7 +239,6 @@ def run_sweep(nlp, spec: SweepSpec, *,
         raise ValueError(
             f"unknown sweep backend {opts.backend!r}; expected 'direct', "
             "'mesh', or 'serve'")
-    _check_not_deferred()
     own = {"direct": plan, "serve": service}.get(backend)
     dev = None if own is not None else resolve_device(device)
     defaults = nlp.default_params() if base_params is None else base_params
@@ -387,6 +377,15 @@ def run_sweep(nlp, spec: SweepSpec, *,
                     conv[j] = False
                     obs_trace.instant("sweep.quarantine", point=int(idxs[j]),
                                       request_id=rid)
+                    if obs_flight.enabled():
+                        obs_flight.trigger(
+                            "quarantine", request_id=rid,
+                            label="sweep." + opts.backend.lower(),
+                            detail={"point": int(idxs[j]),
+                                    "retries": int(retries[j]),
+                                    "obj": (float(obj[j])
+                                            if np.isfinite(obj[j])
+                                            else None)})
             # a finite point that consumed refinement epochs yet still
             # missed tol carries a low-tier-accuracy objective: keep it
             # out of training_data (like non-finite quarantine) but
@@ -398,6 +397,13 @@ def run_sweep(nlp, spec: SweepSpec, *,
                 rid = rids[j] if j < len(rids) else None
                 obs_trace.instant("sweep.refine_failed", point=int(idxs[j]),
                                   request_id=rid)
+                if obs_flight.enabled():
+                    obs_flight.trigger(
+                        "refine_failed", request_id=rid,
+                        label="sweep." + opts.backend.lower(),
+                        detail={"point": int(idxs[j]),
+                                "obj": float(obj[j]),
+                                "refined": int(refined[j])})
             _record_point_outcomes(status)
         if warm_seed:
             # solve order is distance-sorted for seeding, but the STORE
@@ -430,6 +436,7 @@ def run_sweep(nlp, spec: SweepSpec, *,
         ran += 1
         if on_chunk is not None:
             on_chunk(cid, len(chunks))
+    _ledger_record(store, opts, solve_chunk)
     return store
 
 
@@ -448,6 +455,61 @@ def _record_point_outcomes(status: np.ndarray) -> None:
         k = int(np.count_nonzero(status == code))
         if k:
             ctr.inc(k, event=event)
+
+
+def _ledger_record(store: ResultStore, opts: "SweepOptions",
+                   solve_chunk) -> None:
+    """Append this run's throughput/compile/memory record to the perf
+    ledger — only when DISPATCHES_TPU_OBS_LEDGER_DIR is set (tier-1
+    stays write-free), and never at the expense of the sweep itself.
+    ``backend`` is the torch device type the chunks ran on."""
+    try:
+        from dispatches_tpu_torch.obs import ledger
+
+        if not ledger.enabled():
+            return
+        s = store.summary()
+        metrics: Dict = {}
+        if s.get("solves_per_sec") is not None:
+            metrics["solves_per_sec"] = s["solves_per_sec"]
+        # gated iteration-count guardrail for the PDLP solver upgrades
+        algorithm = None
+        if str(opts.solver).lower() == "pdlp":
+            if s.get("iterations_mean") is not None:
+                metrics["pdhg_iters_mean"] = s["iterations_mean"]
+            try:
+                from dispatches_tpu_torch.solvers.pdlp import (
+                    resolve_pdlp_algorithm,
+                )
+
+                algorithm = resolve_pdlp_algorithm(
+                    (opts.solver_options or {}).get("algorithm"))
+            except Exception:
+                pass
+        program = getattr(solve_chunk, "program", None)
+        if program is not None:
+            metrics["compile_count"] = int(program.compiles)
+        try:
+            from dispatches_tpu_torch.obs import profile
+
+            cards = profile.cards_for("sweep.")
+            peaks = [c["peak_bytes"] for c in cards if "peak_bytes" in c]
+            if peaks:
+                metrics["peak_bytes"] = max(peaks)
+        except Exception:
+            pass
+        if not metrics:
+            return
+        ledger.append(ledger.make_record(
+            "sweep", store.fingerprint[:12], metrics,
+            backend=solve_chunk.device.type,
+            extra={"dispatch": opts.backend,
+                   "chunks_done": s.get("chunks_done"),
+                   "algorithm": algorithm,
+                   "precision": store.precision,
+                   "refine_failed": s.get("refine_failed")}))
+    except Exception:
+        pass
 
 
 def _direct_backend(nlp, opts: SweepOptions, defaults, warm_seed: bool, *,
@@ -534,6 +596,8 @@ def _direct_backend(nlp, opts: SweepOptions, defaults, warm_seed: bool, *,
 
     solve_chunk.supports_seeds = warm_seed
     solve_chunk.seed_dims = (n_var, m_con)
+    solve_chunk.program = program
+    solve_chunk.device = xplan.device
     return solve_chunk
 
 
@@ -557,6 +621,7 @@ def _mesh_backend(nlp, opts: SweepOptions, names_p, names_f, *, mesh=None,
         # its collect() fences, so the chunk timer measures completion
         return _extract(sharded(values), n_live)
 
+    solve_chunk.device = torch.device(mesh.devices[0])
     return solve_chunk
 
 
@@ -608,4 +673,5 @@ def _serve_backend(nlp, opts: SweepOptions, defaults, *, service=None, device=No
             refined[i] = rf[0]
         return obj, conv, iters, refined
 
+    solve_chunk.device = service.plan.device
     return solve_chunk

@@ -18,7 +18,8 @@ policy and the latency telemetry are deterministic):
   predictor kill switch bitwise equal to retrieval only, poisoned-lane
   isolation, ``SolverFactory("serve", device="cpu")``, the CLI with
   ``--device cpu``, the device rule, the durability options accepted,
-  and every deferred option raising ``NotImplementedError``."""
+  and the export and flight flags arming the exporter and the
+  recorder."""
 
 import os
 from typing import NamedTuple
@@ -396,11 +397,18 @@ def test_device_rule_and_deferred_options_raise(monkeypatch, tmp_path):
 
     meshed = SolveService(ServeOptions(mesh=scenario_mesh(2, device=CPU)), device=CPU)
     assert meshed.plan.mesh.shape == {"scenario": 2}
-    for flag in ("OBS_EXPORT_DIR", "OBS_FLIGHT_DIR"):
-        monkeypatch.setenv(f"DISPATCHES_TPU_{flag}", str(tmp_path))
-        with pytest.raises(NotImplementedError, match="item 12"):
-            SolveService(device=CPU)
-        monkeypatch.delenv(f"DISPATCHES_TPU_{flag}")
+    # the export and flight flags arm the exporter and the recorder
+    from dispatches_tpu_torch.obs import export as obs_export
+    from dispatches_tpu_torch.obs import flight as obs_flight
+
+    assert SolveService(device=CPU)._exporter is None and not obs_flight.enabled()
+    monkeypatch.setenv("DISPATCHES_TPU_OBS_EXPORT_DIR", str(tmp_path / "export"))
+    assert isinstance(SolveService(device=CPU)._exporter, obs_export.ContinuousExporter)
+    monkeypatch.delenv("DISPATCHES_TPU_OBS_EXPORT_DIR")
+    monkeypatch.setenv("DISPATCHES_TPU_OBS_FLIGHT_DIR", str(tmp_path / "flight"))
+    svc = SolveService(device=CPU)
+    assert obs_flight.enabled() and svc._exporter is None
+    monkeypatch.delenv("DISPATCHES_TPU_OBS_FLIGHT_DIR")
     # cost cards are ported: the flag no longer stops the service (the
     # flag is read once per process, so its resolution is restored after)
     monkeypatch.setattr(profile, "_ENABLED", None)

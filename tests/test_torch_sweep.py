@@ -16,8 +16,9 @@ tests/test_sweep.py built in both packages.
 - the mesh backend and ``mesh=`` on the direct backend, over a 3-entry
   CPU mesh, held to JAX's direct sweep (iterations equal, objectives
   within 1e-9 relative); ``DISPATCHES_TPU_OBS_PROFILE`` records a cost
-  card for the sweep program, the flight and ledger flags still raise
-  (item 12), and the default device is the card.
+  card for the sweep program, ``_OBS_FLIGHT_DIR`` makes a quarantined
+  point dump a flight bundle, ``_OBS_LEDGER_DIR`` appends one ledger
+  record that the JAX ledger loads, and the default device is the card.
 
 One JAX store and one port store of the canonical 12-point spec are
 built once for the module.
@@ -256,14 +257,17 @@ def test_sweep_options_from_env(monkeypatch):
 @pytest.mark.parametrize("flag", ["OBS_FLIGHT_DIR", "OBS_PROFILE", "OBS_LEDGER_DIR"])
 def test_unported_obs_flags_raise_before_any_chunk(nlps, tmp_path, monkeypatch, flag,
                                                     j_store):
-    from dispatches_tpu_torch.obs import profile, trace
+    """Every obs flag of the sweep is ported: each arms its feature and
+    the sweep runs."""
+    from dispatches_tpu_torch.obs import flight, ledger, profile, trace
 
     # the flag is read once per process: restore its resolution after
     monkeypatch.setattr(profile, "_ENABLED", None)
     monkeypatch.setattr(trace, "_SPAN_HOOK", None)
-    monkeypatch.setenv(f"DISPATCHES_TPU_{flag}", str(tmp_path / "obs"))
+    obs_dir = tmp_path / "obs"
+    monkeypatch.setenv(f"DISPATCHES_TPU_{flag}", str(obs_dir))
     if flag == "OBS_PROFILE":
-        # cost cards are ported: the sweep runs, its program is carded
+        # cost cards: the sweep runs, its program is carded
         profile.reset()
         st = _run(nlps, tmp_path / "s")
         np.testing.assert_allclose(st.objectives(), j_store.objectives(), rtol=OBJ_RTOL)
@@ -271,9 +275,37 @@ def test_unported_obs_flags_raise_before_any_chunk(nlps, tmp_path, monkeypatch, 
         assert cards and cards[0]["count"] == 1 and cards[0]["backend"] == "cpu"
         profile.reset()
         return
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _run(nlps, tmp_path / "s")
-    assert not (tmp_path / "s").exists()
+    if flag == "OBS_FLIGHT_DIR":
+        # the flight recorder: each quarantined point dumps a bundle
+        profiles = np.random.default_rng(2).uniform(1.0, 7.0, (8, T))
+        profiles[2, 0] = 9.5
+        spec = tsw.SweepSpec((tsw.grid("price", profiles),))
+        flight.reset()
+        try:
+            st = _run(nlps, tmp_path / "s", spec=spec, options=tsw.SweepOptions(
+                chunk_size=4, solver=_poisoned_solver, max_retries=1))
+            found = flight.bundles(str(obs_dir), full=True)
+        finally:
+            flight.reset()
+        assert list(st.arrays()["status"]) == [0, 0, 2, 0, 0, 0, 0, 0]
+        assert [b["kind"] for b in found] == ["quarantine"]
+        assert found[0]["trigger"]["label"] == "sweep.direct"
+        assert found[0]["trigger"]["detail"] == {"point": 2, "retries": 1, "obj": None}
+        return
+    # the perf ledger: one record per finished run, keyed by the torch
+    # device type, in the JAX package's format
+    from dispatches_tpu.obs import ledger as jledger
+
+    st = _run(nlps, tmp_path / "s")
+    np.testing.assert_allclose(st.objectives(), j_store.objectives(), rtol=OBJ_RTOL)
+    recs = ledger.load(obs_dir)
+    assert len(recs) == 1 and jledger.load(obs_dir) == recs
+    rec = recs[0]
+    assert (rec["kind"], rec["backend"], rec["workload"]) == ("sweep", "cpu",
+                                                             st.fingerprint[:12])
+    assert set(rec["metrics"]) == {"solves_per_sec", "pdhg_iters_mean", "compile_count"}
+    assert rec["metrics"]["compile_count"] >= 1
+    assert rec["extra"]["dispatch"] == "direct" and rec["extra"]["algorithm"] == "halpern"
 
 
 def test_mesh_and_default_device_guards(nlps, tmp_path, j_store):

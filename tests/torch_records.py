@@ -38,6 +38,9 @@ RECORDS = {
     "pdlp_batch_jax": ("test_torch_pdlp_batch", "jax_record"),
     "reduced_vmap_newton_jax": ("test_torch_reduced", "jax_record"),
     "nuclear_price_taker_jax": ("test_torch_nuclear", "jax_record"),
+    "soak_reports_jax": ("test_torch_soak", "jax_record"),
+    "solverlog_traces_jax": ("test_torch_solverlog", "jax_record"),
+    "obs_cli_keys_jax": ("test_torch_obs_cli", "jax_record"),
 }
 
 
