@@ -3,8 +3,8 @@
 NVIDIA GPU.  Run from the repository root: ``python3 chip_smoke.py``.
 
 Phases (any failure exits nonzero; nothing is caught and passed over).
-Phases 1-3 run alone; then phases 6, 7, 10 (split in two), 11, 12 and 13
-run in child processes of this script beside phases 4, 5, 8 and 9
+Phases 1-3 run alone; then phases 6, 7, 10 (split in two), 11, 12, 13 and
+14 run in child processes of this script beside phases 4, 5, 8 and 9
 (``CHILD_GROUPS``), each child's output echoed when it ends:
 
 1. device: print the card's name and power limit (nvidia-smi), build the
@@ -201,9 +201,29 @@ run in child processes of this script beside phases 4, 5, 8 and 9
    ``python -m dispatches_tpu_torch.obs`` (``--soak``, ``--report``,
    ``--prom``, ``--slo --check``, ``--ledger --check-regressions``) in
    child Pythons, with the JAX CLI's exit codes and JSON keys.
+14. the multi-process tier (no hand-written kernel: the sweep kernels'
+   counts are read around the phase and must be 0): ``[fleet]`` a
+   ``FleetRouter`` over 3 in-process replicas on the card (journals each,
+   phase 2's LP, float64 PDLP at tol 1e-8), the 366 scenarios on a
+   ``FakeClock``, replica 1 killed after 120: every request DONE once,
+   one failover, nothing lost, 16 objectives within 1e-6 of HiGHS, then
+   16 repeats (affinity, warm starts after gossip) and ``n_replicas`` 1
+   bitwise a bare service; ``[net]`` two ``python -m
+   dispatches_tpu_torch.net --worker --model arbitrage --device cuda``
+   processes behind ``connect_fleet``, 4 threaded submitters of 32
+   requests with the lock sanitizer on: every request DONE once, 16
+   objectives within 1e-6 of HiGHS, no lock-order inversion; then one
+   worker SIGKILLed with requests open, re-homed from its journal with
+   nothing lost; ``[net-trace]`` two more workers with ``NET_TRACE`` and
+   ``OBS_FLEET_EXPORT_DIR``: a valid merged trace, every request's journey
+   in 2 processes or more, both workers' process labels in the fleet
+   ``metrics.prom``; ``[fleet-soak]`` the chaos-kill fleet soak on the
+   card equal to the CPU's, nothing lost; ``[fleet-cli]`` ``python -m
+   dispatches_tpu_torch.fleet`` in demo and worker mode, with the JAX
+   CLI's keys.
 
 Phase 3 times every kernel tier at B = 366, 1024 and 4096.
-``--only-phase 6``, ``7``, ``8``, ``9``, ``10``, ``11``, ``12`` and ``13`` run one of those
+``--only-phase 6``, ``7``, ``8``, ``9``, ``10``, ``11``, ``12``, ``13`` and ``14`` run one of those
 phases alone, for development (no kernel build, no result line; ``7``
 with ``[dl-trace]``, ``10`` with ``[mp-usc]`` and ``[usc-bid-track]`` at
 full depth, ``11`` with both enumerations; ``10`` and ``11`` also with
@@ -4751,6 +4771,575 @@ def phase_obs(torch, dev):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the multi-process tier (fleet router, net workers, distributed
+# tracing, the soak's fleet section, the fleet CLI)
+# ---------------------------------------------------------------------------
+
+FLEET_REPLICAS = 3         # [fleet]: in-process replicas behind the router
+FLEET_KILLED = 1           # [fleet]: the replica killed ...
+FLEET_KILL_AFTER = 120     # ... after this many of the 366 requests
+FLEET_MAX_BATCH = 32       # [fleet]: lanes per batch (a batch closes only when full)
+FLEET_STEP_S = 0.005       # [fleet]: fake-clock seconds between requests
+FLEET_HEARTBEAT_MS = 250.0
+FLEET_GOSSIP_S = 0.5
+FLEET_REPEATS = 16         # [fleet]: scenarios sent again after the failover
+FLEET_PARITY_N = 64        # [fleet]: requests through n_replicas 1 and a bare service
+NET_T = 12                 # the worker's arbitrage LP horizon (net/worker.py)
+NET_SUBMITTERS, NET_PER_SUBMITTER = 4, 32    # [net]: threaded submitters
+NET_KILL_REQUESTS = 32     # [net]: requests sent just before the SIGKILL
+NET_TRACE_SUBMITTERS, NET_TRACE_PER = 2, 8   # [net-trace]
+NET_HEARTBEAT_MS = 5_000.0  # the JAX multi-process tests' timeouts
+NET_DEADLINE_MS = 60_000.0
+NET_WAIT_S = 180.0         # [net], [net-trace]: the longest wait for every request
+WORKER_THREADS = "2"       # BLAS and torch threads per worker process
+# [net], [net-trace]: the workers' batch-close wait on the real clock.  At
+# the default 10 ms a worker closes a batch every request or two, and each
+# float64 PDLP batch is ~1.5 s of launches whatever its width (run A, PR
+# 14: 0.9 requests/s); 200 ms lets a batch gather the submitters' burst.
+NET_MAX_WAIT_MS = 200.0
+WORKER_START_S = 120.0     # a worker's ready line within this
+FLEET_SOAK = {             # tests/test_fleet.py:478-503, the chaos-kill spec
+    "traffic": {"rate_rps": 120.0, "duration_s": 2.0, "seed": 3, "deadline_ms": 2000.0},
+    "service": {"max_batch": 4, "max_wait_ms": 10.0, "inflight": 2},
+    "service_time": {"base_ms": 5.0, "per_lane_ms": 0.5, "jitter_ms": 0.5},
+    "fleet": {"n_replicas": 3, "kill": [[0, 1.0]], "heartbeat_timeout_ms": 150.0,
+              "gossip_interval_s": 0.5}}
+FLEET_CLI_TIMEOUT_S = 300
+# the JAX fleet CLI's JSON keys (tests/test_torch_fleet.py and
+# tests/test_torch_net.py hold the port's CLI to them on the CPU)
+JAX_FLEET_KEYS = ["submitted", "solved", "timeouts", "errors", "shed", "queue_depth", "flushes",
+                  "batches", "compile_count", "programs", "deadline", "warm_start", "fleet",
+                  "hung"]
+JAX_FLEET_REMOTE_KEYS = JAX_FLEET_KEYS + ["fleet_counters", "trace"]
+# a child Python that dies with the process that started it (the same
+# PR_SET_PDEATHSIG as the phase children), then runs a module as -m would
+_DIE_WITH_PARENT = ("import ctypes, runpy, signal, sys; "
+                    "ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL); "
+                    "runpy.run_module(sys.argv.pop(1), run_name='__main__', alter_sys=True)")
+
+
+def _child_env(**extra):
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("DISPATCHES_TPU_OBS", "DISPATCHES_TPU_SANITIZE",
+                                "DISPATCHES_TPU_NET", "DISPATCHES_TPU_FLEET"))}
+    env.update(PYTHONUNBUFFERED="1", OMP_NUM_THREADS=WORKER_THREADS,
+               MKL_NUM_THREADS=WORKER_THREADS, OPENBLAS_NUM_THREADS=WORKER_THREADS, **extra)
+    return env
+
+
+def _start_module(module, argv, out, err, **env):
+    """``python -m module argv`` in a child that dies with this process."""
+    return subprocess.Popen([sys.executable, "-c", _DIE_WITH_PARENT, module, *argv],
+                            stdout=out, stderr=err, text=True, env=_child_env(**env), cwd=ROOT)
+
+
+def _start_workers(work, tag, dev, n=2, **env):
+    """Start ``n`` ``python -m dispatches_tpu_torch.net --worker --model
+    arbitrage`` processes on ``dev``, each journaling into its own
+    directory under ``work``; :func:`_await_workers` reads their ready
+    lines."""
+    started = []
+    for i in range(n):
+        err = work / f"{tag}-{i}.err"
+        with open(err, "w") as err_file:
+            proc = _start_module("dispatches_tpu_torch.net",
+                                 ["--worker", "--port", "0", "--model", "arbitrage", "--device",
+                                  str(dev), "--journal-dir", str(work / f"{tag}-{i}"),
+                                  "--tick-ms", "5", "--max-wait-ms", str(NET_MAX_WAIT_MS)],
+                                 subprocess.PIPE, err_file, **env)
+        started.append((proc, None, err))
+    return started
+
+
+def _await_workers(started, tag):
+    """``[(proc, port, stderr path)]`` once each worker printed its ready
+    line (within ``WORKER_START_S``)."""
+    import select
+
+    out = []
+    t_end = time.perf_counter() + WORKER_START_S
+    for proc, _, err in started:
+        ready = select.select([proc.stdout], [], [], max(0.0, t_end - time.perf_counter()))[0]
+        line = proc.stdout.readline() if ready else ""
+        if not line:
+            proc.kill()
+            sys.stdout.write(err.read_text()[-4000:])
+        check(line, f"[{tag}] a worker printed no ready line within {WORKER_START_S:.0f} s")
+        msg = json.loads(line)
+        check(msg.get("ready") and msg["pid"] == proc.pid, f"[{tag}] bad ready line {line!r}")
+        out.append((proc, int(msg["port"]), err))
+    return out
+
+
+def _stop_workers(workers):
+    for proc, _, _ in workers:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def _arbitrage_params(nlp, prices, i):
+    d = nlp.default_params()
+    return {"p": {**d["p"], "price": prices[i]}, "fixed": d["fixed"]}
+
+
+def _terminal_once(handles, tag):
+    """Every handle terminal, with exactly one status each (a handle
+    completes once; its status is one of the terminal ones)."""
+    statuses = [h.status for h in handles]
+    check(all(h.done() for h in handles)
+          and all(s in ("DONE", "TIMEOUT", "ERROR", "SHED") for s in statuses),
+          f"[{tag}] {sum(not h.done() for h in handles)} of {len(handles)} requests not terminal")
+    return {s: statuses.count(s) for s in sorted(set(statuses))}
+
+
+def _same_result(a, b):
+    """Two lane results equal bit for bit (tensors, arrays, scalars)."""
+    import torch
+
+    if a is None or b is None:
+        return a is b
+    for x, y in zip(a, b):
+        if isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and x.dtype == y.dtype and torch.equal(x, y)):
+                return False
+        elif np.asarray(x).tobytes() != np.asarray(y).tobytes():
+            return False
+    return len(a) == len(b)
+
+
+def fleet_inprocess(torch, dev, main_run, work):
+    """[fleet]: a ``FleetRouter`` over 3 in-process ``SolveService``
+    replicas on the card (journals each), the 366 scenarios as requests
+    on a ``FakeClock``, replica 1 killed after 120 and failed over by the
+    heartbeat; then 16 repeats (affinity, warm starts after gossip); then
+    ``n_replicas`` 1 against a bare service, bitwise."""
+    from dispatches_tpu_torch.fleet import FleetOptions, FleetRouter
+    from dispatches_tpu_torch.obs.soak import FakeClock
+    from dispatches_tpu_torch.serve import ServeOptions, SolveService, request_fingerprint
+
+    nlp, lmps, cfs = main_run["nlp"], main_run["lmps"], main_run["cfs"]
+    clk = FakeClock()
+
+    def make_service(replica_id, journal_dir, clock=clk):
+        return SolveService(ServeOptions.from_env(max_batch=FLEET_MAX_BATCH, max_wait_ms=1e9),
+                            clock=clock, journal_dir=journal_dir, device=dev)
+
+    router = FleetRouter(FleetOptions(n_replicas=FLEET_REPLICAS,
+                                      heartbeat_timeout_ms=FLEET_HEARTBEAT_MS,
+                                      gossip_interval_s=FLEET_GOSSIP_S),
+                         clock=clk, make_service=make_service, durable_dir=str(work / "fleet"))
+    fail_s = []
+    fail = router._fail_replica
+
+    def timed_fail(replica, now):
+        t = time.perf_counter()
+        fail(replica, now)
+        fail_s.append(time.perf_counter() - t)
+
+    router._fail_replica = timed_fail
+    handles, open_at_kill = [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(N_SCENARIOS):
+        handles.append(router.submit(nlp, _flagship_params(nlp, lmps, cfs, s)))
+        clk.advance(FLEET_STEP_S)
+        router.poll()
+        if s + 1 == FLEET_KILL_AFTER:
+            open_at_kill = router.replicas[FLEET_KILLED].queue_depth()
+            router.kill(FLEET_KILLED)
+    clk.advance(FLEET_HEARTBEAT_MS / 1e3 + FLEET_STEP_S)
+    router.poll()
+    router.flush_all()
+    router.poll()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _terminal_once(handles, "fleet")
+    stats = router.fleet_stats()
+    per = {name: p["submitted"] for name, p in stats["per_replica"].items()}
+    print(f"[fleet] {N_SCENARIOS} requests through {FLEET_REPLICAS} replicas in {wall:.2f} s = "
+          f"{N_SCENARIOS / wall:.1f} requests/s (fake clock, max_batch {FLEET_MAX_BATCH}); "
+          f"statuses {counts}; routed per replica {per}; replica {FLEET_KILLED} killed after "
+          f"{FLEET_KILL_AFTER} with {open_at_kill} queued: failovers {stats['failovers']}, "
+          f"rehomed {stats['rehomed']}, rehome_lost {stats['rehome_lost']}, re-home "
+          f"{sum(fail_s) * 1e3:.1f} ms; gossip {stats['gossip']}")
+    check(counts == {"DONE": N_SCENARIOS}, f"[fleet] not every request DONE: {counts}")
+    check(stats["failovers"] == 1 and stats["rehome_lost"] == 0
+          and stats["rehomed"] >= open_at_kill and stats["alive"] == FLEET_REPLICAS - 1 and stats["bridges_open"] == 0,
+          f"[fleet] failover: {stats['failovers']} failovers, {stats['rehomed']} rehomed, "
+          f"{stats['rehome_lost']} lost, {stats['bridges_open']} bridges open")
+    ref = highs_objectives(torch, nlp, main_run["lp"], lmps[:N_HIGHS], cfs[:N_HIGHS])
+    got = np.asarray([h.result().obj for h in handles[:N_HIGHS]])
+    err = np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)
+    print(f"[fleet] {N_HIGHS} DONE objectives vs HiGHS: max rel err {err.max():.3e}")
+    check(err.max() <= IPM_RTOL, f"[fleet] objective error {err.max():.3e} > {IPM_RTOL}")
+    # repeats: affinity sends each back to its home while it lives
+    hits, reps, orphaned = 0, [], 0
+    for s in range(FLEET_REPEATS):
+        params = _flagship_params(nlp, lmps, cfs, s)
+        home = router._affinity.get(request_fingerprint(params))
+        reps.append(router.submit(nlp, params))
+        orphaned += int(home == FLEET_KILLED)
+        hits += int(home is not None and home != FLEET_KILLED
+                    and router._affinity[request_fingerprint(params)] == home)
+    router.flush_all()
+    _terminal_once(reps, "fleet")
+    kinds = np.bincount([int(h.result().result.start_kind) for h in reps], minlength=4)
+    print(f"[fleet] {FLEET_REPEATS} repeats: affinity hits {hits}, {orphaned} homed on the "
+          f"killed replica and routed anew; start kinds cold/exact/neighbor/predicted = "
+          f"{'/'.join(str(k) for k in kinds)}; warm hit rate "
+          f"{router.metrics()['warm_start']['hit_rate']:.3f}")
+    router.drain()
+    # n_replicas 1: a pass-through, bitwise a bare service
+    clk1 = FakeClock()
+    bare = make_service(None, None, clock=clk1)
+    single = FleetRouter(FleetOptions(n_replicas=1), clock=clk1,
+                         make_service=lambda i, jd: make_service(i, jd, clock=clk1))
+    pairs = []
+    for s in range(FLEET_PARITY_N):
+        params = _flagship_params(nlp, lmps, cfs, s)
+        pairs.append((bare.submit(nlp, params), single.submit(nlp, params)))
+        clk1.advance(FLEET_STEP_S)
+        bare.poll()
+        single.poll()
+    bare.flush_all()
+    single.flush_all()
+    same = sum(hb.request_id == hf.request_id and hb.result().status == hf.result().status
+               == "DONE" and hb.result().obj == hf.result().obj
+               and _same_result(hb.result().result, hf.result().result) for hb, hf in pairs)
+    print(f"[fleet] n_replicas 1 vs a bare service: {same} of {FLEET_PARITY_N} requests "
+          f"bitwise equal (ids, statuses, objectives, every result field)")
+    check(same == FLEET_PARITY_N, "[fleet] n_replicas 1 is not bitwise the bare service")
+    return {"rps": N_SCENARIOS / wall, "rehome_ms": sum(fail_s) * 1e3}
+
+
+def _rpc_quantiles():
+    from dispatches_tpu_torch.obs import registry
+
+    entry = registry.default_registry().snapshot().get("net.rpc_ms") or {}
+    return ", ".join(f"{label.partition('=')[2]} n {int(v['count'])} p50 {v['p50']:.2f} / "
+                     f"p95 {v['p95']:.2f} / p99 {v['p99']:.2f} ms"
+                     for label, v in sorted((entry.get("values") or {}).items()))
+
+
+def _submit_threads(router, nlp, prices, n_threads, per, tag):
+    """``n_threads`` submitters of ``per`` requests each, waiting on their
+    handles (``result()`` drives the remote queues), while this thread
+    polls the router; returns the handles in price order."""
+    import threading
+
+    handles = [[] for _ in range(n_threads)]
+    errors = []
+
+    def submitter(k):
+        try:
+            for i in range(per):
+                handles[k].append(router.submit(
+                    nlp, _arbitrage_params(nlp, prices, k * per + i),
+                    deadline_ms=NET_DEADLINE_MS))
+            for h in handles[k]:
+                h.result(timeout=NET_WAIT_S)
+        except Exception as exc:
+            errors.append(f"{type(exc).__name__}: {exc}")
+
+    threads = [threading.Thread(target=submitter, args=(k,)) for k in range(n_threads)]
+    for t in threads:
+        t.start()
+    t_end = time.perf_counter() + NET_WAIT_S
+    while any(t.is_alive() for t in threads) and time.perf_counter() < t_end:
+        router.poll()
+        time.sleep(0.005)
+    for t in threads:
+        t.join(timeout=5.0)
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"[{tag}] a submitter failed or hung: {errors[:3]}")
+    return [h for hs in handles for h in hs]
+
+
+def _vs_highs(torch, nlp, lp, prices, idx, handles, tag):
+    ref = np.asarray([highs_objective(torch, nlp, lp, _arbitrage_params(nlp, prices, i),
+                                      f"{tag} request {i}") for i in idx])
+    got = np.asarray([handles[i].result().obj for i in idx])
+    err = np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)
+    check(err.max() <= IPM_RTOL, f"[{tag}] objective error {err.max():.3e} > {IPM_RTOL}")
+    return err.max()
+
+
+def net_workers(torch, dev, work, workers):
+    """[net]: ``connect_fleet`` over two worker processes serving the
+    serve CLI's arbitrage LP on the card; 4 threaded submitters with the
+    lock sanitizer on; then a SIGKILL of one worker with requests open."""
+    from dispatches_tpu_torch.analysis import runtime
+    from dispatches_tpu_torch.fleet import FleetOptions, connect_fleet
+    from dispatches_tpu_torch.serve.__main__ import _arbitrage_nlp
+    from dispatches_tpu_torch.solvers import make_lp_data
+
+    nlp = _arbitrage_nlp(NET_T)
+    lp = make_lp_data(nlp, device="cpu")
+    n = NET_SUBMITTERS * NET_PER_SUBMITTER
+    prices = 30.0 + 10.0 * np.random.default_rng(14).standard_normal((n + NET_KILL_REQUESTS, NET_T))
+    os.environ["DISPATCHES_TPU_SANITIZE"] = "1"  # read when the locks are built
+    runtime.reset_lock_order()
+    try:
+        router = connect_fleet([("127.0.0.1", port) for _, port, _ in workers],
+                               options=FleetOptions(n_replicas=len(workers),
+                                                    heartbeat_timeout_ms=NET_HEARTBEAT_MS,
+                                                    gossip_interval_s=FLEET_GOSSIP_S))
+        t0 = time.perf_counter()
+        handles = _submit_threads(router, nlp, prices, NET_SUBMITTERS, NET_PER_SUBMITTER, "net")
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("DISPATCHES_TPU_SANITIZE", None)
+    counts = _terminal_once(handles, "net")
+    report = runtime.lock_order_report()
+    stats = router.fleet_stats()
+    offsets = {name: p["clock_offset_us"] for name, p in stats["per_replica"].items()}
+    routed = {name: p["submitted"] for name, p in stats["per_replica"].items()}
+    print(f"[net] {n} requests from {NET_SUBMITTERS} threads through {len(workers)} workers in "
+          f"{wall:.2f} s = {n / wall:.1f} requests/s; statuses {counts}; routed {routed}; clock "
+          f"offsets (us) {offsets}; lock-order edges {len(report['edges'])}, inversions "
+          f"{len(report['inversions'])}, net locks held {sorted(k for k in report['holds'] if k.startswith('net.'))}")
+    check(counts == {"DONE": n} and len({h._rid for h in handles}) == n,
+          f"[net] not every request DONE exactly once: {counts}")
+    check(report["inversions"] == [], f"[net] lock-order inversions {report['inversions'][:2]}")
+    err = _vs_highs(torch, nlp, lp, prices, range(N_HIGHS), handles, "net")
+    print(f"[net] {N_HIGHS} DONE objectives vs HiGHS (the serve CLI's LP, T = {NET_T}): max rel "
+          f"err {err:.3e}")
+    print(f"[net] rpc latency (client-observed): {_rpc_quantiles()}")
+    # the SIGKILL: requests go out, one worker dies with some of them open
+    kill = []
+    for i in range(n, n + NET_KILL_REQUESTS):
+        kill.append(router.submit(nlp, _arbitrage_params(nlp, prices, i),
+                                  deadline_ms=NET_DEADLINE_MS))
+    # no poll since these went out: every request routed to the victim is
+    # still open on the router's books when it dies
+    victim = router.replicas[0]
+    open_at_kill = len(victim.service._handles)
+    workers[0][0].kill()
+    t_kill = time.perf_counter()
+    t_end = t_kill + NET_WAIT_S
+    while (router.failovers == 0 or not all(h.done() for h in kill)) \
+            and time.perf_counter() < t_end:
+        router.poll()
+        try:
+            router.flush_all()
+        except Exception:
+            pass  # the dead worker's flush: fail-stop containment in the next poll
+        time.sleep(0.01)
+    t_done = time.perf_counter() - t_kill
+    counts = _terminal_once(kill, "net")
+    stats = router.fleet_stats()
+    print(f"[net] SIGKILL of {victim.name} (pid {victim.worker_pid}) with {open_at_kill} of "
+          f"the {NET_KILL_REQUESTS} just sent open: failovers {stats['failovers']}, rehomed "
+          f"{stats['rehomed']}, rehome_lost {stats['rehome_lost']}; every request terminal "
+          f"{t_done:.2f} s after the kill (heartbeat timeout {NET_HEARTBEAT_MS / 1e3:.0f} s); "
+          f"statuses {counts}")
+    check(stats["failovers"] == 1 and stats["rehome_lost"] == 0
+          and stats["rehomed"] >= open_at_kill > 0 and counts == {"DONE": NET_KILL_REQUESTS},
+          f"[net] SIGKILL failover: {stats['failovers']} failovers, {stats['rehomed']} rehomed, "
+          f"{stats['rehome_lost']} lost, statuses {counts}")
+    err = _vs_highs(torch, nlp, lp, prices[n:], range(N_HIGHS), kill, "net")
+    print(f"[net] {N_HIGHS} of the SIGKILL batch vs HiGHS: max rel err {err:.3e}")
+    router.drain()
+    return {"rps": n / wall, "rehome_s": t_done}
+
+
+def net_trace(torch, dev, work, workers):
+    """[net-trace]: the two-worker set-up with ``NET_TRACE`` on both sides
+    and ``OBS_FLEET_EXPORT_DIR`` set: one merged Chrome trace, every
+    request's journey in spans of 2 processes or more, the fleet
+    ``metrics.prom`` labelled with both workers."""
+    from dispatches_tpu_torch.fleet import FleetOptions, connect_fleet
+    from dispatches_tpu_torch.obs import distributed, report, trace
+    from dispatches_tpu_torch.serve.__main__ import _arbitrage_nlp
+
+    nlp = _arbitrage_nlp(NET_T)
+    n = NET_TRACE_SUBMITTERS * NET_TRACE_PER
+    prices = 30.0 + 10.0 * np.random.default_rng(15).standard_normal((n, NET_T))
+    export_dir = work / "fleet-export"
+    distributed.enable(True)
+    trace.enable(True)
+    trace.reset()
+    os.environ["DISPATCHES_TPU_OBS_FLEET_EXPORT_DIR"] = str(export_dir)
+    try:
+        router = connect_fleet([("127.0.0.1", port) for _, port, _ in workers],
+                               options=FleetOptions(n_replicas=len(workers),
+                                                    heartbeat_timeout_ms=NET_HEARTBEAT_MS,
+                                                    gossip_interval_s=60.0))
+        handles = _submit_threads(router, nlp, prices, NET_TRACE_SUBMITTERS, NET_TRACE_PER,
+                                  "net-trace")
+        router._exporter.export()
+        remotes = router.trace_exports()
+        path = work / "merged_trace.json"
+        n_events = distributed.export_merged_trace(path, trace.events(), remotes)
+    finally:
+        os.environ.pop("DISPATCHES_TPU_OBS_FLEET_EXPORT_DIR", None)
+        distributed.enable(False)
+        trace.enable(False)
+    counts = _terminal_once(handles, "net-trace")
+    events = report.load_chrome_trace(path)
+    problems = report.validate_chrome_trace(events)
+    negative = sum(e.get("ts", 0.0) < 0.0 or e.get("dur", 0.0) < 0.0 for e in events)
+    worker_pids = {proc.pid for proc, _, _ in workers}
+    journeys = [report.journey_processes(events, h._rid) for h in handles]
+    crossed = sum(len(p) >= 2 and bool(worker_pids & set(p)) for p in journeys)
+    stats = router.fleet_stats()["per_replica"]
+    prom = (export_dir / "metrics.prom").read_text()
+    labels = [f'process="{name}:pid{p["pid"]}"' for name, p in stats.items()]
+    print(f"[net-trace] {n} traced requests, statuses {counts}; merged trace {n_events} events "
+          f"from {1 + len(remotes)} processes, {len(problems)} problems, {negative} negative "
+          f"timestamps or durations; journeys across 2+ processes {crossed} of {n}; fleet "
+          f"metrics.prom {len(prom.splitlines())} lines, labels "
+          f"{[lbl for lbl in labels if lbl in prom]}")
+    check(counts == {"DONE": n}, f"[net-trace] not every request DONE: {counts}")
+    check(problems == [] and negative == 0 and len(remotes) == len(workers),
+          f"[net-trace] merged trace invalid: {problems[:4]}, {negative} negative")
+    check(crossed == n, f"[net-trace] {n - crossed} journeys stayed in one process")
+    check(all(lbl in prom for lbl in labels), "[net-trace] a worker's process label is missing")
+    router.drain()
+
+
+def fleet_soak(torch, dev):
+    """[fleet-soak]: the chaos-kill fleet soak on the card and on the CPU,
+    equal in every virtual-time field, nothing lost; then the spec at 1
+    replica and at 3 without the kill (virtual time)."""
+    from dispatches_tpu_torch.obs import soak
+
+    t0 = time.perf_counter()
+    card = soak.run_soak(json.loads(json.dumps(FLEET_SOAK)), device=dev)
+    t1 = time.perf_counter()
+    cpu = soak.run_soak(json.loads(json.dumps(FLEET_SOAK)), device="cpu")
+    t2 = time.perf_counter()
+    c, ft = card["requests"], card["fleet"]
+    print(_soak_line("fleet-soak", card) + f"; fleet {ft['alive']}/{ft['n_replicas']} alive, "
+          f"failovers {ft['failovers']}, rehomed {ft['rehomed']}, replica_lost_request_rate "
+          f"{card['replica_lost_request_rate']}; {t1 - t0:.2f} s on the card, {t2 - t1:.2f} s on "
+          f"the CPU")
+    diff = _soak_diff(card, cpu)
+    check(diff is None, f"[fleet-soak] the card's report differs from the CPU's at {diff}")
+    check(card["replica_lost_request_rate"] == 0.0 and c["hung"] == 0 and ft["failovers"] == 1
+          and c["done"] + c["timeout"] + c["error"] + c["shed"] == c["submitted"],
+          f"[fleet-soak] a request was lost or hung: {c}")
+    rows = {}
+    for n in (1, 3):
+        spec = json.loads(json.dumps(FLEET_SOAK))
+        spec["fleet"] = {"enabled": True, "n_replicas": n, "heartbeat_timeout_ms": 150.0,
+                         "gossip_interval_s": 0.5}
+        r = soak.run_soak(spec, device=dev)
+        rows[n] = (r["requests"]["done"] / r["duration_s"], r["latency_ms"]["posthoc"]["p99"])
+    print(f"[fleet-soak] virtual time, no kill: 1 replica {rows[1][0]:.2f} requests/s p99 "
+          f"{rows[1][1]:.3f} ms; 3 replicas {rows[3][0]:.2f} requests/s p99 {rows[3][1]:.3f} ms; "
+          f"ratio 3:1 throughput {rows[3][0] / rows[1][0]:.4f}, p99 {rows[3][1] / rows[1][1]:.4f} "
+          f"(virtual-time figures, not card time)")
+
+
+def start_fleet_cli(work, dev):
+    """[fleet-cli]: start ``python -m dispatches_tpu_torch.fleet`` in demo
+    mode and in worker mode (2 workers, a merged trace and a merged
+    exposition) in child Pythons; joined by :func:`join_fleet_cli`."""
+    runs = {"demo": ["--stats", "--json", "--device", str(dev)],
+            "workers": ["--workers", "2", "--trace-export", str(work / "cli-trace.json"),
+                        "--prom-out", str(work / "cli.prom"), "--json", "--device", str(dev)]}
+    procs = {}
+    for name, argv in runs.items():
+        out = open(work / f"fleet-cli-{name}.out", "w+")
+        procs[name] = (_start_module("dispatches_tpu_torch.fleet", argv, out, subprocess.STDOUT),
+                       out, argv, time.perf_counter())
+    return procs
+
+
+def join_fleet_cli(procs):
+    from dispatches_tpu_torch.obs import report
+
+    for name, (proc, out, argv, t0) in procs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, t0 + FLEET_CLI_TIMEOUT_S - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"[fleet-cli] {name} still running after {FLEET_CLI_TIMEOUT_S} s")
+        out.seek(0)
+        text = out.read()
+        out.close()
+        if rc != 0:
+            sys.stdout.write(text[-4000:])
+        check(rc == 0, f"[fleet-cli] {' '.join(argv)} exited {rc}")
+        payload = json.loads(text.strip().splitlines()[-1])
+        want = JAX_FLEET_KEYS if name == "demo" else JAX_FLEET_REMOTE_KEYS
+        check(list(payload) == want, f"[fleet-cli] {name} keys {list(payload)}")
+        check(payload["hung"] == 0, f"[fleet-cli] {name}: {payload['hung']} hung")
+        line = (f"[fleet-cli] {' '.join(argv)}: exit {rc}, keys as the JAX CLI's, "
+                f"{payload['solved']} solved of {payload['submitted']}, "
+                f"{payload['fleet']['alive']}/{payload['fleet']['n_replicas']} replicas alive")
+        if name == "workers":
+            tr = payload["trace"]
+            check(tr["valid"] and tr["processes"] == 3
+                  and report.validate_chrome_trace(report.load_chrome_trace(tr["path"])) == [],
+                  f"[fleet-cli] merged trace invalid: {tr['problems']}")
+            line += f", merged trace {tr['events']} events from {tr['processes']} processes"
+        print(f"{line}; joined {time.perf_counter() - t0:.1f} s after its start")
+
+
+def phase_fleet(torch, dev):
+    """Phase 14, with the sweep kernels' counts set to 0 before and read
+    after (no kernel lies on this path): the multi-process tier on the
+    card."""
+    import tempfile
+
+    from dispatches_tpu_torch.kernels import pdhg_sweep as ks
+
+    ks.avg_sweep.launches = 0
+    ks.halpern_sweep.launches = 0
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="phase14-") as tmp:
+        work = Path(tmp)
+        # one pair of workers, or the CLI children, at a time: each is a
+        # CUDA context on the one card, which time-slices between busy
+        # contexts and so slows every launch-bound phase running beside
+        # this one (run C, PR 14: 4 workers and 2 CLI children at once
+        # took phase 13's real-clock soak from 24.6 s to 260.3 s)
+        live, cli, walls, got = [], {}, [], {}
+
+        def part(name, run):
+            t_part = time.perf_counter()
+            run()
+            walls.append(f"{name} {time.perf_counter() - t_part:.1f}")
+
+        def swap_workers(tag, **env):
+            _stop_workers(live)
+            live[:] = _start_workers(work, tag, dev, **env)
+
+        try:
+            swap_workers("net", DISPATCHES_TPU_SANITIZE="1")  # they start during [fleet]
+            main_run = flagship(torch, dev)
+            part("fleet", lambda: got.update(fleet=fleet_inprocess(torch, dev, main_run, work)))
+            part("net", lambda: got.update(net=net_workers(
+                torch, dev, work, _await_workers(live, "net"))))
+            swap_workers("net-trace", DISPATCHES_TPU_NET_TRACE="1")
+            part("fleet-soak", lambda: fleet_soak(torch, dev))
+            part("net-trace", lambda: net_trace(torch, dev, work, _await_workers(live,
+                                                                                 "net-trace")))
+            _stop_workers(live)
+            cli = start_fleet_cli(work, dev)
+            part("fleet-cli", lambda: join_fleet_cli(cli))
+        finally:
+            _stop_workers(live)
+            for proc, out, _, _ in cli.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                out.close()
+    print(f"[phase14] {time.perf_counter() - t0:.1f} s ({', '.join(walls)} s); fleet "
+          f"{got['fleet']['rps']:.1f} requests/s in process, re-home {got['fleet']['rehome_ms']:.1f} "
+          f"ms; net {got['net']['rps']:.1f} requests/s through 2 workers, SIGKILL to all terminal "
+          f"{got['net']['rehome_s']:.2f} s; sweep kernel launches during it: halpern "
+          f"{ks.halpern_sweep.launches}, avg {ks.avg_sweep.launches}")
+    check(ks.halpern_sweep.launches == 0 and ks.avg_sweep.launches == 0,
+          "[phase14] a sweep kernel was launched on the fleet path")
+
+
 # The whole run drives these groups of phases in child processes (this
 # script with a private flag), started after phase 3's kernel timings and
 # running beside phases 4, 5, 8 and 9 in the main process: every phase
@@ -4760,14 +5349,16 @@ def phase_obs(torch, dev):
 CHILD_FLAG = "--phase-child"
 CHILD_GROUPS = (("6",), ("7",), ("10", "salt-hx", "isp", "isp-init", "isp-analysis"),
                 ("10", "mp-eval", "usc-bid-track", "mp-usc"),
-                ("11",), ("12",), ("13",))
+                ("11",), ("12",), ("13",), ("14",))
 CHILD_THREADS = "2"        # BLAS and torch threads per child (8 host cores in all)
 WHOLE_RUN_S = 1140.0       # the run fails itself past this, inside the 1,200 s limit
 
 
 def whole_run_phase(torch, dev, phase, parts=()):
-    """Phase 6, 7, 10, 11 (``parts`` of it), 12 or 13 at the whole run's depth."""
-    if phase == "13":
+    """Phase 6, 7, 10, 11 (``parts`` of it), 12, 13 or 14 at the whole run's depth."""
+    if phase == "14":
+        phase_fleet(torch, dev)
+    elif phase == "13":
         phase_obs(torch, dev)
     elif phase == "12":
         phase_mesh(torch, dev)
@@ -4870,7 +5461,8 @@ def main():
              "11": lambda dev: phase_designs(torch, dev, only=True,
                                              parts=sys.argv[3:] or DESIGN_PARTS),
              "12": lambda dev: phase_mesh(torch, dev),
-             "13": lambda dev: phase_obs(torch, dev)}
+             "13": lambda dev: phase_obs(torch, dev),
+             "14": lambda dev: phase_fleet(torch, dev)}
     part_names = {"10": STORAGE_PARTS, "11": DESIGN_PARTS}
     if sys.argv[1:2] == ["--only-phase"]:
         # a development run of one phase alone: no kernel build, no result

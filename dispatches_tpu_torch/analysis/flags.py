@@ -127,6 +127,42 @@ REGISTERED_FLAGS = {
     "SOAK_REPORT_DIR": "directory `--soak` writes soak_report.json "
     "and exporter records into (obs.soak; `--out` wins; unset with no "
     "--out = report to stdout only)",
+    "FLEET_REPLICAS": "fleet-serve replica count behind the "
+    "FleetRouter façade; 1 (the default) is a pass-through that "
+    "constructs no gossip/heartbeat machinery "
+    "(fleet.FleetOptions.from_env)",
+    "FLEET_HEARTBEAT_MS": "fleet-serve heartbeat timeout on the "
+    "router clock: a replica whose last beat is older is declared "
+    "dead and failed over (journal replay + re-home onto survivors) "
+    "(fleet.FleetOptions.from_env; default 500)",
+    "FLEET_GOSSIP_INTERVAL_S": "fleet-serve seconds between gossip "
+    "rounds exchanging warm-start index entries and admission "
+    "service-time estimates between replicas "
+    "(fleet.FleetOptions.from_env; default 5)",
+    "NET_PORT": "default TCP port for `python -m dispatches_tpu_torch.net "
+    "--worker` (net.__main__; 0 = kernel-assigned ephemeral port, "
+    "printed on the ready line; `--port` wins over the flag)",
+    "NET_CONNECT_TIMEOUT_MS": "RPC client connection-dial timeout in "
+    "milliseconds (net.rpc.RpcClient; default 500)",
+    "NET_RPC_RETRIES": "RPC client retry budget per call on transport "
+    "errors, with capped-exponential backoff between attempts "
+    "(net.rpc.RpcClient; default 2; 0 = fail on first error)",
+    "NET_HEARTBEAT_MS": "deadline for a remote replica's heartbeat "
+    "ping RPC — never retried: a missed ping is a lost beat the "
+    "router's timeout logic must see (fleet.remote.RemoteReplicaHandle; "
+    "default 100)",
+    "NET_TRACE": "arm wire-level distributed tracing: RpcClient "
+    "attaches a trace context (request id, origin pid/generation, "
+    "parent span) to every frame, RpcServer opens child spans under "
+    "it, and workers record spans for trace_export pulls "
+    "(obs.distributed.enabled; disarmed = one cached-boolean branch "
+    "on the RPC hot path)",
+    "OBS_FLEET_EXPORT_DIR": "arm the fleet-mode continuous exporter in "
+    "this directory: the FleetRouter's ContinuousExporter merges live "
+    "remote-replica registry snapshots (process-labeled) into one "
+    "metrics.prom alongside the router's own series "
+    "(fleet.FleetRouter / obs.export.ContinuousExporter; unset = "
+    "per-process export only)",
     "SWEEP_CHUNK": "sweep-engine points per chunk == checkpoint/resume "
     "granularity (sweep.SweepOptions.from_env)",
     "SWEEP_MAX_RETRIES": "sweep-engine point-wise retry budget before a "

@@ -24,7 +24,10 @@
   time series (``DISPATCHES_TPU_OBS_EXPORT_DIR``);
 * :mod:`~dispatches_tpu_torch.obs.online` and
   :mod:`~dispatches_tpu_torch.obs.soak` — streaming analytics and the
-  soak harness (``--soak``).
+  soak harness (``--soak``);
+* :mod:`~dispatches_tpu_torch.obs.distributed` — wire-level trace
+  context, clock alignment and multi-process trace/metrics merging for
+  the fleet tier (``DISPATCHES_TPU_NET_TRACE``).
 
 Everything here is disabled by default; set ``DISPATCHES_TPU_OBS=1``
 (or call :func:`enable`) to record, and run
@@ -66,6 +69,7 @@ from dispatches_tpu_torch.obs.report import (  # noqa: F401
     validate_chrome_trace,
 )
 from dispatches_tpu_torch.obs import (  # noqa: F401
+    distributed,
     export,
     flight,
     ledger,

@@ -39,9 +39,10 @@ function of virtual time and the seed equals the JAX package's report
 on the same spec.
 
 The replay runs on ``device`` (``cuda`` unless the caller asks for the
-CPU).  The spec's ``fleet`` section (replicas behind a router) waits for
-the port of ``fleet/``: a spec that turns it on raises
-``NotImplementedError``.
+CPU).  The spec's ``fleet`` section replays against a
+:class:`~dispatches_tpu_torch.fleet.FleetRouter` over several services,
+each on its own modeled busy timeline, with kill windows failed over by
+the router's heartbeat timeout.
 
 CLI: ``python -m dispatches_tpu_torch.obs --soak [--json] [--spec FILE]
 [--duration S] [--real] [--out DIR] [--device DEV]``.
@@ -146,6 +147,51 @@ def _soak_plan(options, clock: FakeClock, service_time_s):
     # (PlanOptions.fence_timeout_ms) and injected hang_s faults both
     # consume virtual time, so hang scenarios soak deterministically
     return _SoakPlan(options, clock=clock)
+
+
+class _ReplicaClock:
+    """Per-replica view of the shared :class:`FakeClock` plus a
+    transient ``lead``, applied only while a fence completes so the
+    replica's latency/deadline accounting sees the batch's modeled
+    finish instant.  Replicas each have their own busy timeline, so a
+    fleet soak models genuine overlap — advancing the one global clock
+    per batch would serialize the replicas and cap measured scaling at
+    1/n no matter how well the router spread the load."""
+
+    __slots__ = ("base", "lead")
+
+    def __init__(self, base: FakeClock):
+        self.base = base
+        self.lead = 0.0
+
+    def __call__(self) -> float:
+        return self.base() + self.lead
+
+
+def _fleet_plan(options, global_clock: FakeClock,
+                replica_clock: _ReplicaClock, service_time_s, state: Dict):
+    """The fleet-mode counterpart of :func:`_soak_plan`: the fence does
+    NOT advance the global clock.  Each batch starts when the replica
+    is free (``max(now, busy_until)``), finishes ``service_time`` later,
+    and the replica clock *leads* to that finish instant only while the
+    completion bookkeeping runs — the global clock stays on the arrival
+    schedule, and the driver accounts the busy tails at the end."""
+    from dispatches_tpu_torch.plan.execution import ExecutionPlan
+
+    class _FleetSoakPlan(ExecutionPlan):
+        def _complete_oldest(self):
+            if not self._window:
+                return super()._complete_oldest()
+            start = max(global_clock(), state["busy_until"])
+            finish = start + service_time_s(self._window[0])
+            state["busy_until"] = finish
+            replica_clock.lead = max(finish - global_clock(), 0.0)
+            try:
+                return super()._complete_oldest()
+            finally:
+                replica_clock.lead = 0.0
+
+    return _FleetSoakPlan(options, clock=replica_clock)
 
 
 # ---------------------------------------------------------------------------
@@ -275,9 +321,15 @@ DEFAULT_SPEC: Dict = {
     # learned-state snapshot) and keep replaying.  Virtual mode only.
     "restart": {"enabled": False, "crash_at_s": None,
                 "snapshot_interval_s": 1.0},
-    # fleet: replay against a router over n_replicas services instead of
-    # a bare service (``enabled`` None = auto, fleet when n_replicas >
-    # 1).  The port's fleet tier is not there yet: turning it on raises.
+    # fleet (docs/fleet.md): replay against a FleetRouter over
+    # n_replicas SolveServices instead of a bare service.  ``enabled``
+    # None = auto (fleet when n_replicas > 1); True forces the fleet
+    # path even at n_replicas == 1 (the bench A/B baseline, so both
+    # arms share the routing/plan mechanics); False never.  ``kill`` is
+    # a list of [replica_id, at_s] fail-stop windows (virtual seconds
+    # from t0) — detection and failover run on the heartbeat timeout,
+    # per-replica journals re-home the open requests onto survivors.
+    # Virtual mode only; mutually exclusive with ``restart``.
     "fleet": {"enabled": None, "n_replicas": 1, "kill": [],
               "heartbeat_timeout_ms": 250.0, "gossip_interval_s": 1.0,
               "shed_queue_depth": None},
@@ -358,10 +410,10 @@ def run_soak(spec: Optional[Dict] = None, *, nlp=None, base_solver=None,
     compile spikes; the warmup requests do still show up in the
     service-level ``metrics()`` section of the report.
 
-    The service and its plan run on ``device`` (``cuda`` unless given).
-    A spec whose ``fleet`` section is on (``enabled`` true, or
-    ``n_replicas`` > 1) raises ``NotImplementedError``: the port's fleet
-    tier is ``ROADMAP.md``'s next item.
+    The service and its plan (every replica's, in fleet mode) run on
+    ``device`` (``cuda`` unless given).  The ``fleet`` section is
+    virtual-only and excludes the ``restart`` section (``ValueError``
+    otherwise, as in the JAX package).
     """
     from dispatches_tpu_torch import resolve_device
     from dispatches_tpu_torch.plan.execution import ExecutionPlan, PlanOptions
@@ -370,15 +422,6 @@ def run_soak(spec: Optional[Dict] = None, *, nlp=None, base_solver=None,
                                                     SolveService)
 
     spec = load_soak_spec(overrides=spec)
-    fleet_cfg = spec.get("fleet") or {}
-    _fleet_flag = fleet_cfg.get("enabled")
-    if (bool(_fleet_flag) if _fleet_flag is not None
-            else int(fleet_cfg.get("n_replicas") or 1) > 1):
-        raise NotImplementedError(
-            "the soak's fleet section needs the port of fleet/ (a router "
-            "over several services), which is not there yet: ROADMAP.md "
-            "queue 1, item 12's next slice (obs/distributed.py, net/, "
-            "fleet/)")
     tspec = traffic_mod.spec_from_dict(spec["traffic"])
     svc_cfg = spec["service"]
     fault_cfg = spec["faults"]
@@ -439,6 +482,21 @@ def run_soak(spec: Optional[Dict] = None, *, nlp=None, base_solver=None,
                        else _tempfile.mkdtemp(prefix="soak-durable-"))
     snap_interval = float(restart_cfg.get("snapshot_interval_s") or 1.0)
 
+    # fleet tier (docs/fleet.md): n replicas behind a FleetRouter
+    fleet_cfg = spec.get("fleet") or {}
+    n_replicas = int(fleet_cfg.get("n_replicas") or 1)
+    _fleet_flag = fleet_cfg.get("enabled")
+    fleet_mode = (bool(_fleet_flag) if _fleet_flag is not None
+                  else n_replicas > 1)
+    if fleet_mode and not virtual:
+        raise ValueError("the fleet soak section is virtual-only (the "
+                         "per-replica busy timelines live on the fake "
+                         "clock)")
+    if fleet_mode and restart_enabled:
+        raise ValueError("fleet and restart soak sections are mutually "
+                         "exclusive: fleet failover IS the restart "
+                         "story (journal handoff instead of rebuild)")
+
     def _serve_options(p):
         return ServeOptions(
             max_batch=int(svc_cfg["max_batch"]),
@@ -448,10 +506,44 @@ def run_soak(spec: Optional[Dict] = None, *, nlp=None, base_solver=None,
                               else int(shed_depth)),
             adaptive_wait=bool(svc_cfg.get("adaptive_wait", False)))
 
-    plan = _new_plan()
-    service = SolveService(
-        _serve_options(plan), clock=clk, journal_dir=durable_dir,
-        snapshot_interval_s=(snap_interval if durable_dir else None))
+    router = None
+    replica_busy: Dict[int, Dict] = {}
+    if fleet_mode:
+        import os as _os
+
+        from dispatches_tpu_torch.fleet import FleetOptions, FleetRouter
+
+        def _make_replica(replica_id, journal_dir):
+            rclk = _ReplicaClock(clk)
+            state = {"busy_until": 0.0}
+            replica_busy[replica_id] = state
+            plan = _fleet_plan(plan_opts, clk, rclk, model.sampler(clk),
+                               state)
+            return SolveService(_serve_options(plan), clock=rclk,
+                                journal_dir=journal_dir,
+                                snapshot_interval_s=(
+                                    snap_interval if journal_dir
+                                    else None))
+
+        fleet_shed = fleet_cfg.get("shed_queue_depth")
+        router = FleetRouter(
+            FleetOptions(
+                n_replicas=n_replicas,
+                heartbeat_timeout_ms=float(
+                    fleet_cfg.get("heartbeat_timeout_ms") or 250.0),
+                gossip_interval_s=float(
+                    fleet_cfg.get("gossip_interval_s") or 1.0),
+                shed_queue_depth=(None if fleet_shed is None
+                                  else int(fleet_shed))),
+            clock=clk, make_service=_make_replica,
+            durable_dir=(_os.path.join(str(out_dir), "fleet-durable")
+                         if out_dir and n_replicas > 1 else None))
+        service = router
+    else:
+        plan = _new_plan()
+        service = SolveService(
+            _serve_options(plan), clock=clk, journal_dir=durable_dir,
+            snapshot_interval_s=(snap_interval if durable_dir else None))
 
     # pre-compile the lane-count programs before any instrument is
     # attached: warmup latency is compile latency, not tail signal
@@ -482,9 +574,12 @@ def run_soak(spec: Optional[Dict] = None, *, nlp=None, base_solver=None,
     if fault_cfg.get("shed_on_burn"):
         # sustained-burn load shedding: any monitor rule firing sheds
         # new submissions until its windows drain back under threshold
+        # (the router exposes the same shed_signal contract)
         service.shed_signal = lambda: any(m.firing for m in monitors)
 
-    acc = online.TimelineAccumulator(plan=service.plan.plan_id)
+    acc_plan_id = (service.plan.plan_id if router is None
+                   else router.replicas[0].service.plan.plan_id)
+    acc = online.TimelineAccumulator(plan=acc_plan_id)
     latencies: List[float] = []
     alerts: List[Dict] = []
     bundle_paths: List[str] = []
@@ -507,7 +602,10 @@ def run_soak(spec: Optional[Dict] = None, *, nlp=None, base_solver=None,
             ExportOptions(directory=str(out_dir),
                           interval_s=float(spec["export_interval_s"])),
             clock=clk)
-        service.attach_exporter(exporter)
+        if router is None:
+            service.attach_exporter(exporter)
+        # fleet mode ticks the exporter from the driver loop instead:
+        # attaching to one replica would stop exporting when it dies
 
     # latency/queue-wait tee: the service's window ``record`` calls
     # happen exactly at fence/dispatch time, so shadowing them on the
@@ -538,7 +636,13 @@ def run_soak(spec: Optional[Dict] = None, *, nlp=None, base_solver=None,
         svc._queue_wait.record = _qw_record
         tees.append((svc, orig_lat, orig_qw))
 
-    _tee_service(service)
+    # Fleet mode tees every replica; observations land on the shared
+    # stream with global-clock timestamps either way.
+    if router is None:
+        _tee_service(service)
+    else:
+        for _rep in router.replicas:
+            _tee_service(_rep.service)
 
     # -- crash-restart -----------------------------------------------------
     restart_state: Dict = {"done": False, "info": None}
@@ -632,9 +736,29 @@ def run_soak(spec: Optional[Dict] = None, *, nlp=None, base_solver=None,
                     if p is not None:
                         bundle_paths.append(p)
 
+    # fleet kill windows: fail-stop replicas mid-replay; detection and
+    # failover run on the router's heartbeat timeout inside poll()
+    kill_windows = [
+        {"replica": int(k[0]), "at_s": float(k[1]), "fired": False}
+        for k in (fleet_cfg.get("kill") or [])] if fleet_mode else []
+
+    def _maybe_kill() -> None:
+        now = clk()
+        for kw in kill_windows:
+            if not kw["fired"] and now >= t0 + kw["at_s"]:
+                kw["fired"] = True
+                try:
+                    router.kill(kw["replica"])
+                except KeyError:
+                    pass  # a spec naming a nonexistent replica is inert
+
     def _harvest() -> None:
         _fault_window(clk())
         _maybe_crash()
+        if fleet_mode:
+            _maybe_kill()
+            if exporter is not None:
+                exporter.maybe_export(clk())
         while pending and pending[0].done():
             h = pending.popleft()
             sr = h._result
@@ -691,7 +815,42 @@ def run_soak(spec: Optional[Dict] = None, *, nlp=None, base_solver=None,
         service.poll()
         service.flush_all()
         _harvest()
-        if pending:
+        if fleet_mode:
+            # fire any kills scheduled past the last arrival, then let
+            # the heartbeat silence age so detection + failover run,
+            # drain the re-homed twins, and pump the orphan bridges
+            for kw in kill_windows:
+                if not kw["fired"]:
+                    clk.advance_to(t0 + kw["at_s"])
+                    _harvest()
+            clk.advance(float(fleet_cfg.get("heartbeat_timeout_ms")
+                              or 250.0) / 1e3 + poll_dt)
+            service.poll()
+            service.flush_all()
+            service.poll()
+            _harvest()
+            # the throughput headline's wall clock is when the LAST
+            # replica went idle — account the modeled busy tails the
+            # arrival schedule never reached
+            for state in replica_busy.values():
+                clk.advance_to(state["busy_until"])
+            if pending:
+                # an orphan whose re-home was lost never completes;
+                # count completed stragglers stuck behind it, leave
+                # the rest to the hung/lost accounting below
+                done_stragglers = [h for h in pending if h.done()]
+                open_stragglers = len(pending) - len(done_stragglers)
+                pending.clear()
+                pending.extend(done_stragglers)
+                _harvest()
+                pending.clear()  # the open ones count as hung below
+                if open_stragglers:
+                    obs_registry.counter(
+                        "fleet.lost",
+                        "requests lost across a failover (orphans "
+                        "whose re-home could not land)").inc(
+                            open_stragglers)
+        elif pending:
             raise RuntimeError(
                 f"{len(pending)} request(s) left incomplete after flush_all")
         now = clk()
@@ -739,6 +898,32 @@ def run_soak(spec: Optional[Dict] = None, *, nlp=None, base_solver=None,
                      if counts["submitted"] else 0.0)
         restart_report["lost_request_rate"] = round(lost_rate, 6)
         recovery_ms = restart_report["restart_recovery_ms"]
+    fleet_report: Dict = {"enabled": bool(fleet_mode)}
+    replica_lost_rate = None
+    if fleet_mode:
+        fs = router.fleet_stats()
+        # a request the fleet accepted but never brought to a terminal
+        # status — the headline the chaos gate pins to zero
+        replica_lost_rate = (counts["hung"] / counts["submitted"]
+                             if counts["submitted"] else 0.0)
+        fleet_report.update({
+            "n_replicas": fs["n_replicas"],
+            "alive": fs["alive"],
+            "failovers": fs["failovers"],
+            "rehomed": fs["rehomed"],
+            "rehome_lost": fs["rehome_lost"],
+            "fleet_shed": fs["fleet_shed"],
+            "gossip": fs["gossip"],
+            "kills": [{"replica": kw["replica"], "at_s": kw["at_s"],
+                       "fired": kw["fired"]} for kw in kill_windows],
+            "replica_lost_request_rate": round(replica_lost_rate, 6),
+            # fleet-aggregate warm hit rate (dead replicas contribute
+            # their at-death snapshot): the failover smoke pins this
+            # non-degraded vs a kill-free run of the same stream
+            "warm_hit_rate": round(
+                router.metrics()["warm_start"]["hit_rate"], 6),
+            "per_replica": fs["per_replica"],
+        })
     report = {
         "schema": SOAK_SCHEMA,
         "virtual": bool(virtual),
@@ -772,13 +957,15 @@ def run_soak(spec: Optional[Dict] = None, *, nlp=None, base_solver=None,
             "recovery_rate": round(recovery_rate, 6),
         },
         "restart": restart_report,
-        "fleet": {"enabled": False},
+        "fleet": fleet_report,
         "soak_p99_ms": lat_summary.get("p99"),
         "slo_burn_max": round(burn_max, 4),
         "fault_recovery_rate": round(recovery_rate, 6),
         "restart_recovery_ms": recovery_ms,
         "lost_request_rate": lost_rate,
-        "replica_lost_request_rate": None,
+        "replica_lost_request_rate": (
+            None if replica_lost_rate is None
+            else round(replica_lost_rate, 6)),
     }
     if out_dir:
         import os
@@ -809,6 +996,15 @@ def format_soak_report(report: Dict) -> str:
             f"recovered (rate {fl['recovery_rate']:.3f}), "
             f"{fl['plan_retries']} plan retr{'y' if fl['plan_retries'] == 1 else 'ies'}, "
             f"{fl['shed']} shed")
+    ft = report.get("fleet")
+    if ft and ft.get("enabled") and "n_replicas" in ft:
+        kills = sum(1 for k in ft.get("kills", ()) if k["fired"])
+        lines.append(
+            f"fleet: {ft['alive']}/{ft['n_replicas']} replicas alive, "
+            f"{kills} killed, {ft['failovers']} failover(s), "
+            f"{ft['rehomed']} re-homed, {ft['rehome_lost']} lost in "
+            f"handoff (replica_lost_request_rate "
+            f"{ft['replica_lost_request_rate']:.4f})")
     rs = report.get("restart")
     if rs and rs.get("enabled") and "open_at_crash" in rs:
         lines.append(

@@ -86,6 +86,7 @@ from __future__ import annotations
 
 import itertools
 import os
+import threading
 import time
 from collections import OrderedDict, deque
 from dataclasses import dataclass
@@ -143,6 +144,12 @@ __all__ = [
 ]
 
 _PDLP_FIELDS = set(PDLPOptions.__dataclass_fields__)
+#: held while a bucket is built: building differentiates the model with
+#: ``torch.func.jacfwd``, whose forward-AD levels are process-wide state
+#: in torch, so two threads building at once (concurrent first submits,
+#: a worker's RPC threads) corrupt each other's levels.  A leaf lock: no
+#: other lock is taken under it.
+_BUILD_LOCK = threading.Lock()
 _IPM_FIELDS = set(IPMOptions._fields)
 
 
@@ -685,8 +692,9 @@ class SolveService:
             if base_solver is not None:
                 opts["base_solver"] = base_solver
             warm = self.options.warm_start and warmstart.enabled()
-            bucket = _Bucket(nlp, solver, opts, label, self.plan,
-                             warm_start=warm)
+            with _BUILD_LOCK:
+                bucket = _Bucket(nlp, solver, opts, label, self.plan,
+                                 warm_start=warm)
             bucket.rebuild = (nlp, solver, dict(opts), warm)
             # double-checked insert: two first-submit threads can both
             # miss and build; the loser's twin is discarded unseen
@@ -1200,8 +1208,9 @@ class SolveService:
         opts = dict(opts)
         opts["precision"] = "f32"
         label = f"{bucket.stats.label}.f32"
-        twin = _Bucket(nlp, solver, opts, label, self.plan,
-                       warm_start=warm)
+        with _BUILD_LOCK:
+            twin = _Bucket(nlp, solver, opts, label, self.plan,
+                           warm_start=warm)
         twin.rebuild = (nlp, solver, opts, warm)
         bucket.redirect = twin
         # a first-class bucket: poll/flush_all/queue-depth walk _buckets

@@ -31,6 +31,7 @@ from dispatches_tpu_torch.obs import export as texp  # noqa: E402
 from dispatches_tpu_torch.obs import registry as treg  # noqa: E402
 from dispatches_tpu_torch.obs.soak import FakeClock, StubNLP, make_stub_solver  # noqa: E402
 from dispatches_tpu_torch.serve import ServeOptions, SolveService  # noqa: E402
+from torch_isolation import isolated_obs_state  # noqa: E402,F401
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
 PROM_GOLDEN = os.path.join(os.path.dirname(__file__), "data", "prometheus_golden.prom")

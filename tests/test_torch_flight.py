@@ -39,9 +39,11 @@ from dispatches_tpu_torch.obs import registry as treg  # noqa: E402
 from dispatches_tpu_torch.obs import trace as ttrace  # noqa: E402
 from dispatches_tpu_torch.obs.soak import FakeClock, StubNLP, make_stub_solver  # noqa: E402
 from dispatches_tpu_torch.serve import ServeOptions, SolveService  # noqa: E402
+from torch_isolation import isolated_obs_state  # noqa: E402,F401
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
 CPU = "cpu"
+EVENTS = "flight.torch_parity.events"
 
 
 @pytest.fixture(autouse=True)
@@ -87,7 +89,10 @@ def _sequence(seed, n=40):
 def _run(fl, reg, clock, directory, seq):
     fl.enable(str(directory))
     fl.set_clock(clock)
-    ctr = reg.counter("flight.test.events", "test events")
+    # a counter only this file touches: the default registries outlive a
+    # test file, and a JAX test of its own (tests/test_slo_flight.py) fills
+    # a "flight.test.events" counter in JAX's registry alone
+    ctr = reg.counter(EVENTS, "test events")
     reg.gauge("plan.inflight").set(1.0)
     reg.gauge("serve.queue_depth").set(3.0)
     paths, bundles, suppressed = [], [], []
@@ -122,7 +127,7 @@ def test_trigger_sequence_equal_jax(tmp_path, monkeypatch, seed):
             assert tb[key] == jb[key], key
         assert tb["plan"] == jb["plan"] == {"inflight": 1.0, "queue_depth": 3.0,
                                             "timeline_tail": []}
-        assert tb["metrics"]["flight.test.events"] == jb["metrics"]["flight.test.events"]
+        assert tb["metrics"][EVENTS] == jb["metrics"][EVENTS]
         # after the first bundle the diffs cover only this test's activity
         if tb is not next(b for b in t_b if b is not None):
             assert tb["metrics_diff"] == jb["metrics_diff"]

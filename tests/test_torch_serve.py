@@ -421,3 +421,45 @@ def test_device_rule_and_deferred_options_raise(monkeypatch, tmp_path):
     assert svc.plan.device == torch.device("cpu")
     assert svc.metrics()["durability"] == {"journaled": False, "snapshot_writes": 0,
                                            "generation": 1, "recovery": None}
+
+
+def test_concurrent_first_submits_build_buckets_one_at_a_time():
+    """Six threads submit the first requests of one bucket at once (a net
+    worker's RPC threads do this): building a bucket differentiates the
+    model with ``torch.func.jacfwd``, whose forward-AD levels are
+    process-wide in torch, so unserialized builds raised "Trying to create
+    a dual Tensor for forward AD but no level exists".  Every submit now
+    lands, in one bucket, and every request solves."""
+    import sys
+    import threading
+
+    for _ in range(3):
+        nlp = _arbitrage_nlp(12)
+        svc = SolveService(ServeOptions(max_batch=64, max_wait_ms=1e9), device=CPU)
+        barrier = threading.Barrier(6)
+        handles, errors = [], []
+
+        def submit(k):
+            barrier.wait()
+            try:
+                d = nlp.default_params()
+                handles.append(svc.submit(nlp, {"p": {**d["p"], "price": np.full(12, 30.0 + k)},
+                                                "fixed": d["fixed"]}))
+            except Exception as exc:
+                errors.append(exc)
+
+        threads = [threading.Thread(target=submit, args=(k,)) for k in range(6)]
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-5)  # switch threads often: races show
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+        finally:
+            sys.setswitchinterval(interval)
+        assert not any(t.is_alive() for t in threads)
+        assert errors == [] and len(handles) == 6
+        assert len(svc._buckets) == 1
+        svc.flush_all()
+        assert [h.result().status for h in handles] == ["DONE"] * 6

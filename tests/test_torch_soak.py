@@ -26,7 +26,11 @@ JAX's four reports (with those fields taken out) are recorded in
 ``test_soak_jax_record_is_current`` (slow) holds to a fresh JAX run
 bitwise; tier 1 holds the port's reports to the record.
 
-A spec with the fleet section on raises ``NotImplementedError``.
+The fleet section (``enabled`` true, or ``n_replicas`` > 1) replays a
+short spec equal to JAX's in every virtual-time field, and raises JAX's
+``ValueError`` on the real clock and beside the restart section; the
+chaos-kill spec of ``tests/test_fleet.py`` is held in
+``tests/test_torch_fleet.py``.
 """
 
 import json
@@ -189,8 +193,24 @@ def test_restart_spec_equals_jax(tmp_path):
 
 @pytest.mark.parametrize("fleet", [{"enabled": True}, {"n_replicas": 3}])
 def test_fleet_section_raises(fleet):
-    with pytest.raises(NotImplementedError, match="fleet"):
-        tsoak.run_soak({"traffic": {"duration_s": 0.1}, "fleet": fleet}, device="cpu")
+    """The armed section: a short replay through the router equals JAX's
+    in every virtual-time field; it raises JAX's ``ValueError`` on the
+    real clock and beside the restart section."""
+    spec = {"traffic": {"duration_s": 0.5}, "fleet": fleet}
+    t = tsoak.run_soak(json.loads(json.dumps(spec)), device="cpu")
+    _reset()
+    j = jsoak.run_soak(json.loads(json.dumps(spec)))
+    _equal(_virtual_fields(t), _virtual_fields(j))
+    ft = t["fleet"]
+    assert ft["enabled"] and ft["n_replicas"] == fleet.get("n_replicas", 1)
+    assert ft["alive"] == ft["n_replicas"] and ft["failovers"] == 0
+    assert t["requests"]["hung"] == 0 and t["replica_lost_request_rate"] == 0.0
+    assert t["requests"]["done"] == t["requests"]["submitted"] > 0
+    with pytest.raises(ValueError, match="virtual"):
+        tsoak.run_soak(json.loads(json.dumps(spec)), virtual=False, device="cpu")
+    with pytest.raises(ValueError, match="mutually"):
+        tsoak.run_soak({**spec, "restart": {"enabled": True, "crash_at_s": 0.05}},
+                       device="cpu")
 
 
 def test_stub_solver_iters_match_jax_stub():

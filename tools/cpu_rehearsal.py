@@ -12,6 +12,7 @@ the operations their solver iterations dispatch.
     python3 tools/cpu_rehearsal.py ops10
     python3 tools/cpu_rehearsal.py phase10 [salt] [isp] [init] [analysis] [mp] [bid] [bid25] [mpusc]
     python3 tools/cpu_rehearsal.py phase11 [--whole] [tes] [tube] [scpc] [scpc-tes] [charge-design] ...
+    python3 tools/cpu_rehearsal.py phase14 [fleet] [net] [net-trace] [fleet-soak] [fleet-cli]
 
 ``ops`` counts the aten operations that one Newton iteration of the IPM
 dispatches (the difference between ``max_iter=3`` and ``max_iter=1``,
@@ -65,6 +66,10 @@ decisions that chip_smoke.py's ``CHARGE_WARM_START`` holds, and
 card vs CPU becomes CPU vs CPU.  ``--whole`` runs them at the whole run's
 depth (the charge design warm-started at maxiter 1, the discharge design
 at maxiter 1, the enumerations cut; ~3 min for every part).
+
+``phase14`` runs phase 14's parts on the CPU (the workers and the CLI
+children with ``--device cpu``); ``[fleet-soak]``'s card-vs-CPU
+comparison becomes CPU vs CPU.  Counts and statuses, never a device time.
 """
 
 from __future__ import annotations
@@ -409,6 +414,44 @@ def phase11(parts, whole=False):
     print(f"{len(failed)} check(s) failed")
 
 
+def phase14(parts):
+    import tempfile
+
+    _stub_cuda()
+    torch.set_num_threads(2)
+    failed = []
+
+    def check(cond, msg):
+        if not cond:
+            print(f"check failed: {msg}")
+            failed.append(msg)
+
+    cs.check = check
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        live = []
+        try:
+            if "fleet" in parts:
+                cs.fleet_inprocess(torch, CPU, cs.flagship(torch, CPU), work)
+            if "net" in parts:
+                live = cs._await_workers(cs._start_workers(
+                    work, "net", CPU, DISPATCHES_TPU_SANITIZE="1"), "net")
+                cs.net_workers(torch, CPU, work, live)
+                cs._stop_workers(live)
+            if "net-trace" in parts:
+                live = cs._await_workers(cs._start_workers(
+                    work, "net-trace", CPU, DISPATCHES_TPU_NET_TRACE="1"), "net-trace")
+                cs.net_trace(torch, CPU, work, live)
+                cs._stop_workers(live)
+            if "fleet-soak" in parts:
+                cs.fleet_soak(torch, CPU)
+            if "fleet-cli" in parts:
+                cs.join_fleet_cli(cs.start_fleet_cli(work, CPU))
+        finally:
+            cs._stop_workers(live)
+    print(f"{len(failed)} check(s) failed")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -437,6 +480,10 @@ def main(argv=None):
     p11.add_argument("parts", nargs="*", default=["tes", "tube", "scpc"],
                      choices=list(cs.DESIGN_PARTS))
     p11.add_argument("--whole", action="store_true", help="at the whole run's depth")
+    p14 = sub.add_parser("phase14", help="chip_smoke.py phase 14 on the CPU")
+    p14.add_argument("parts", nargs="*",
+                     default=["fleet", "net", "net-trace", "fleet-soak", "fleet-cli"],
+                     choices=["fleet", "net", "net-trace", "fleet-soak", "fleet-cli"])
     cc = sub.add_parser("crash-child", help="phase 9's [crash] child, on the CPU")
     cc.add_argument("dir")
     args = ap.parse_args(argv)
@@ -452,6 +499,8 @@ def main(argv=None):
         phase11(args.parts, args.whole)
     elif args.cmd == "crash-child":
         cs.crash_child(args.dir, device="cpu")
+    elif args.cmd == "phase14":
+        phase14(set(args.parts))
     elif args.cmd == "phase9":
         phase9(args.parts)
     elif args.cmd == "phase8":
