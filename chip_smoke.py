@@ -3,9 +3,11 @@
 NVIDIA GPU.  Run from the repository root: ``python3 chip_smoke.py``.
 
 Phases (any failure exits nonzero; nothing is caught and passed over).
-Phases 1-3 run alone; then phases 6, 7, 10 (split in two), 11, 12, 13 and
-14 run in child processes of this script beside phases 4, 5, 8 and 9
-(``CHILD_GROUPS``), each child's output echoed when it ends:
+Phases 1-3 run alone; then phases 6, 7, 10 (split in two), 11, 12 and 13
+run in child processes of this script beside phases 4, 5, 8 and 9
+(``CHILD_GROUPS``), and phases 14 and 15, one after the other, each in one
+more child once they have ended (``LATE_CHILD_GROUPS``), each child's
+output echoed when it ends:
 
 1. device: print the card's name and power limit (nvidia-smi), build the
    PDHG sweep kernels from ``dispatches_tpu_torch/csrc`` with nvcc;
@@ -221,14 +223,34 @@ Phases 1-3 run alone; then phases 6, 7, 10 (split in two), 11, 12, 13 and
    card equal to the CPU's, nothing lost; ``[fleet-cli]`` ``python -m
    dispatches_tpu_torch.fleet`` in demo and worker mode, with the JAX
    CLI's keys.
+15. the analysis passes and the steady-state contract, armed
+   (``DISPATCHES_TPU_SANITIZE`` and ``DISPATCHES_TPU_WARN_RECOMPILE`` set
+   in the phase's own process; the sweep kernels' counts are read around
+   it): ``[lint]`` ``python -m dispatches_tpu_torch.analysis --check
+   --json`` and ``--selftest`` in child Pythons, both exit 0, nothing new
+   and no lock finding baselined; ``[recompiles]`` each program warmed
+   once, then called again under ``assert_no_recompiles()`` with a
+   ``RecompileWarning`` an error: phase 2's main path (B = 366, halpern,
+   f32) as a counted program, launching the halpern kernel, keeping the
+   kernel library it loaded and calling no builder of the library, the
+   packed operator or the LP data, 16 lanes within 1e-4 of HiGHS; two
+   identical rounds of 16 PDLP and 16 IPM
+   requests through ``SolveService`` (programs = compiles = 2); 4
+   ``SolverFactory("ipm")`` solves over new prices within 1e-6 of HiGHS;
+   the 3-day wind-battery double loop of tests/test_analysis.py, one
+   build per solver callable; ``[sanitize]`` 4 submitter threads of 16
+   requests and a poller on an armed service (ready schedule): 64 DONE, 0
+   lock-order inversions; ``nan_guard`` on a NaN warns; ``checkified(
+   torch.log)`` raises on -1.0 and returns 0 on 1.0.
 
 Phase 3 times every kernel tier at B = 366, 1024 and 4096.
-``--only-phase 6``, ``7``, ``8``, ``9``, ``10``, ``11``, ``12``, ``13`` and ``14`` run one of those
+``--only-phase 6``, ``7``, ``8``, ``9``, ``10``, ``11``, ``12``, ``13``, ``14`` and ``15`` run one of those
 phases alone, for development (no kernel build, no result line; ``7``
 with ``[dl-trace]``, ``10`` with ``[mp-usc]`` and ``[usc-bid-track]`` at
 full depth, ``11`` with both enumerations; ``10`` and ``11`` also with
 only the parts named after them: ``--only-phase 10 mp-usc``,
-``--only-phase 11 charge-study``).  The line
+``--only-phase 11 charge-study``; ``--only-phase 11 discharge-study fwh9``
+runs that enumeration over the sources named).  The line
 before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -3867,10 +3889,12 @@ def discharge_design(torch, dev, maxiter):
     check(20.0 < out["es_power_mw"] < 60.0, f"[discharge-design] storage turbine {out['es_power_mw']}")
 
 
-def design_study(torch, dev, which):
+def design_study(torch, dev, which, sources=None):
     """[charge-study] / [discharge-study]: the full enumeration with
     ``isolate=True`` (each combination in a child Python on the card);
-    the best design must be solar salt / HP and the condenser pump."""
+    the best design must be solar salt / HP and the condenser pump.
+    ``sources`` restricts the discharge study to some sources: it then
+    prints their results and checks no winner."""
     from dispatches_tpu_torch.case_studies.fossil import storage_charge_design as cd
     from dispatches_tpu_torch.case_studies.fossil import storage_discharge_design as dd
 
@@ -3888,14 +3912,29 @@ def design_study(torch, dev, which):
                                   device=dev, on_result=ended)
         want = {"salt": "solar_salt", "source": "hp"}
     else:
-        out = dd.run_design_study(maxiter=STUDY_ITERS, isolate=True, device=dev, on_result=ended)
+        out = dd.run_design_study(sources=sources, maxiter=STUDY_ITERS, isolate=True,
+                                  device=dev, on_result=ended)
         want = {"source": "condpump"}
+        if sources is not None:
+            print(f"{tag} {len(out['results'])} of the sources only ({', '.join(sources)}) in "
+                  f"{time.perf_counter() - t0:.1f} s: no winner is checked")
+            return
     t1 = time.perf_counter()
     best = out["best"]
     print(f"{tag} {len(out['results'])} combinations in {t1 - t0:.1f} s; best "
           f"{json.dumps(best, sort_keys=True)}")
     check(best is not None, f"{tag} no feasible design")
     check(all(best[k] == v for k, v in want.items()), f"{tag} best {best}, want {want}")
+
+
+def discharge_sources(parts):
+    """The discharge study's sources named among ``parts`` (after
+    ``--only-phase 11 discharge-study``), or None for all of them: a run of
+    the phase alone is held to 3,600 s, and the five sources at once did
+    not finish inside that on one H100."""
+    from dispatches_tpu_torch.case_studies.fossil import storage_discharge_design as dd
+
+    return tuple(p for p in parts if p in dd.SOURCES) or None
 
 
 def phase_designs(torch, dev, only=False, parts=DESIGN_PARTS):
@@ -3925,7 +3964,8 @@ def phase_designs(torch, dev, only=False, parts=DESIGN_PARTS):
         if f"{which}-study" in parts and not only:
             print(f"[{which}-study] cut from the whole run for time (--only-phase 11 runs it)")
         elif f"{which}-study" in parts:
-            design_study(torch, dev, which)
+            design_study(torch, dev, which, sources=(
+                discharge_sources(parts) if which == "discharge" else None))
     print(f"[phase11] {time.perf_counter() - t0:.1f} s; sweep kernel launches during it: "
           f"halpern {ks.halpern_sweep.launches}, avg {ks.avg_sweep.launches}")
     check(ks.halpern_sweep.launches == 0 and ks.avg_sweep.launches == 0,
@@ -5340,6 +5380,399 @@ def phase_fleet(torch, dev):
           "[phase14] a sweep kernel was launched on the fleet path")
 
 
+# ---------------------------------------------------------------------
+# phase 15: the analysis passes and the steady-state contract on the card
+# ---------------------------------------------------------------------
+
+LINT_TIMEOUT_S = 300       # [lint]: each analysis CLI child
+P15_SERVE_WAVES = 2        # [recompiles] (b): waves of (8 PDLP at T 8, 8 IPM at T 12) a round
+P15_FACTORY_PRICES = 4     # [recompiles] (c): new prices after the warm solve
+P15_DL_DAYS = 3            # [recompiles] (d): co-sim days, the first the warm-up
+P15_DL_PUSHES = 12         # [recompiles] (d): RT bids and tracking pushes a day (2 h each)
+SANITIZE_THREADS = 4       # [sanitize]: submitter threads ...
+SANITIZE_PER_THREAD = 16   # ... of this many requests each, beside one polling thread
+P15_ARMED = {"DISPATCHES_TPU_SANITIZE": "1", "DISPATCHES_TPU_WARN_RECOMPILE": "1"}
+
+
+def lint_cli(torch):
+    """[lint]: ``python -m dispatches_tpu_torch.analysis --check --json`` and
+    ``--selftest`` in child Pythons: both exit 0, nothing new beyond the
+    baseline and no lock finding in it."""
+    out = {}
+    for args in (["--check", "--json"], ["--selftest"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "dispatches_tpu_torch.analysis", *args],
+                              capture_output=True, text=True, cwd=ROOT, timeout=LINT_TIMEOUT_S,
+                              env=_child_env())
+        out[args[0]] = (proc, time.perf_counter() - t0)
+        check(proc.returncode == 0, f"[lint] {' '.join(args)} exited {proc.returncode}:\n"
+              f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    doc = json.loads(out["--check"][0].stdout)
+    rules = sorted({f["rule"] for f in doc["findings"]})
+    print(f"[lint] --check --json: exit 0 in {out['--check'][1]:.1f} s, schema {doc['schema']}, "
+          f"counts {json.dumps(doc['counts'], sort_keys=True)}, baselined rules {rules}; "
+          f"--selftest: exit 0 in {out['--selftest'][1]:.1f} s "
+          f"({out['--selftest'][0].stdout.strip()})")
+    check(doc["schema"] == 1 and doc["counts"]["new"] == 0, "[lint] new findings")
+    check(not {"GL009", "GL010", "GL011", "GL012"} & set(rules), "[lint] a lock finding is baselined")
+
+
+def _steady(torch, tag, run):
+    """``run()`` under ``assert_no_recompiles()``, a RecompileWarning raised
+    as an error; returns its result and wall (synchronized)."""
+    import warnings
+
+    from dispatches_tpu_torch.analysis import RecompileWarning, assert_no_recompiles
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RecompileWarning)
+        with assert_no_recompiles():
+            out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def recompiles_main_path(torch, dev, main_run):
+    """[recompiles] (a): phase 2's main path (the batch PDLP at B = 366,
+    halpern, f32, tol 1e-5) as a counted program, warmed once, then solved
+    again: the halpern kernel launches, nothing is built, and 16 lanes
+    agree with HiGHS.
+
+    The program counter's signature is the same on both calls by
+    construction, so "nothing is built" is held on what a rebuild would
+    redo: the kernel library stays the one object the warm solve loaded,
+    and the steady solve calls none of the builders of the library
+    (``library_path``), of the packed operator (``pack_operator``) or of
+    the LP's data and scalings (``make_lp_data``, ``_scalings``)."""
+    from dispatches_tpu_torch.analysis import CountedProgram, recompile_counts
+    from dispatches_tpu_torch.kernels import pdhg_sweep as ks
+    from dispatches_tpu_torch.solvers import BatchPDLPOptions, make_pdlp_batch_solver
+    from dispatches_tpu_torch.solvers import pdlp_batch as pb
+
+    nlp, lp, lmps, cfs = main_run["nlp"], main_run["lp"], main_run["lmps"], main_run["cfs"]
+    defaults = nlp.default_params()
+    params = {"p": {**defaults["p"], "lmp": torch.as_tensor(lmps * 1e-3, device=dev),
+                    "windpower.capacity_factor": torch.as_tensor(cfs, device=dev)},
+              "fixed": defaults["fixed"]}
+    solver = CountedProgram(make_pdlp_batch_solver(
+        nlp, BatchPDLPOptions(tol=1e-5, dtype="float32"), lp_data=lp, device=dev),
+        label="phase15.main_path")
+    warm = solver(params)
+    builds = dict(recompile_counts())
+    lib0 = ks._lib  # the library the warm solve loaded (None: the CPU's plain sweep)
+    spied = {"library_path": ks, "pack_operator": ks, "make_lp_data": pb, "_scalings": pb}
+    originals = {name: getattr(mod, name) for name, mod in spied.items()}
+    rebuilds = dict.fromkeys(spied, 0)
+
+    def spy(name):
+        def counted(*a, **kw):
+            rebuilds[name] += 1
+            return originals[name](*a, **kw)
+        return counted
+
+    launches0 = ks.halpern_sweep.launches
+    for name, mod in spied.items():
+        setattr(mod, name, spy(name))
+    try:
+        res, wall = _steady(torch, "main-path", lambda: solver(params))
+    finally:
+        for name, mod in spied.items():
+            setattr(mod, name, originals[name])
+    launches = ks.halpern_sweep.launches - launches0
+    obj, iters = res.obj.cpu().numpy(), res.iters.cpu().numpy()
+    ref = highs_objectives(torch, nlp, lp, lmps[:N_HIGHS], cfs[:N_HIGHS])
+    rel = np.abs(obj[:N_HIGHS] - ref) / np.maximum(np.abs(ref), 1.0)
+    drift = float(np.abs(obj - warm.obj.cpu().numpy()).max())
+    print(f"[recompiles] main path B={N_SCENARIOS} halpern/f32: {wall * 1e3:.1f} ms, halpern "
+          f"launches {launches} (iters_max {iters.max()}), program builds "
+          f"{solver._graft_counter.count} (unchanged), builder calls {rebuilds}, kernel library "
+          f"{'the warm one' if ks._lib is lib0 else 'RELOADED'}, obj_rel_err_vs_highs "
+          f"{rel.max():.3e}, max |obj - warm obj| {drift:.3e}")
+    check(obj.shape == (N_SCENARIOS,) and np.all(np.isfinite(obj)), "[recompiles] main path obj")
+    check(launches > 0 and launches == math.ceil(iters.max() / K_STEPS),
+          f"[recompiles] main path: {launches} halpern launches for max {iters.max()} iterations")
+    check(solver._graft_counter.count == 1 and recompile_counts() == builds,
+          "[recompiles] the main path built a program")
+    check((lib0 is not None or dev.type != "cuda") and ks._lib is lib0
+          and not any(rebuilds.values()),
+          f"[recompiles] the steady main path rebuilt: library {'kept' if ks._lib is lib0 else 'reloaded'}, "
+          f"builder calls {rebuilds}")
+    check(rel.max() <= OBJ_RTOL, f"[recompiles] main path vs HiGHS {rel.max():.3e}")
+    return wall, launches
+
+
+def recompiles_serve(torch, dev):
+    """[recompiles] (b): tests/test_serve.py's steady state on the card: two
+    identical rounds of 16 PDLP (T = 8, tol 1e-9, f64) and 16 IPM (T = 12)
+    requests through ``SolveService``; one 16-lane program per bucket, the
+    second round built nothing and returned the first round's objectives."""
+    from dispatches_tpu_torch.obs.soak import FakeClock
+    from dispatches_tpu_torch.serve import RequestStatus, ServeOptions, SolveService
+    from dispatches_tpu_torch.serve.__main__ import _arbitrage_nlp
+
+    clock = FakeClock()
+    svc = SolveService(ServeOptions(max_batch=16, max_wait_ms=1e9, warm_start=False),
+                       clock=clock, device=dev)
+    nlps = {8: _arbitrage_nlp(8), 12: _arbitrage_nlp(12)}
+    rng = np.random.default_rng(15)
+
+    def params(T):
+        d = nlps[T].default_params()
+        return {"p": {**d["p"], "price": 30.0 + 10.0 * rng.standard_normal(T)}, "fixed": d["fixed"]}
+
+    reqs = []
+    for _ in range(P15_SERVE_WAVES):
+        reqs += [("pdlp", 8, params(8)) for _ in range(8)]
+        reqs += [("ipm", 12, params(12)) for _ in range(8)]
+
+    def run_round():
+        handles = []
+        for kind, T, p in reqs:
+            clock.advance(1e-4)
+            handles.append(svc.submit(nlps[T], p, solver=kind, options=(
+                {"tol": 1e-9, "dtype": "float64"} if kind == "pdlp" else {"max_iter": 200})))
+        svc.flush_all()
+        return [h.result() for h in handles]
+
+    round1 = run_round()
+    m = svc.metrics()
+    check(all(r.status == RequestStatus.DONE for r in round1), "[recompiles] serve round 1")
+    check(m["programs"] == m["compile_count"] == 2, f"[recompiles] serve round 1: {m['programs']} "
+          f"programs, {m['compile_count']} compiles")
+    round2, wall = _steady(torch, "serve", run_round)
+    m2 = svc.metrics()
+    gap = max(abs(a.obj - b.obj) for a, b in zip(round1, round2))
+    print(f"[recompiles] serve: round 2 of {len(reqs)} requests {wall * 1e3:.1f} ms, programs "
+          f"{m2['programs']}, compile_count {m2['compile_count']}, solved {m2['solved']}, lane counts "
+          f"pdlp {m2['buckets']['pdlp#0']['lane_counts']} ipm {m2['buckets']['ipm#1']['lane_counts']}, "
+          f"max |obj round 2 - round 1| {gap:.3e}")
+    check(all(r.status == RequestStatus.DONE for r in round2), "[recompiles] serve round 2")
+    check(m2["compile_count"] == m2["programs"] == 2 and m2["solved"] == 2 * len(reqs),
+          "[recompiles] serve round 2 built a program")
+    check(gap <= 1e-9 * max(1.0, max(abs(r.obj) for r in round1)),
+          f"[recompiles] serve: round 2 moved an objective by {gap:.3e}")
+    return wall
+
+
+def recompiles_factory(torch, dev):
+    """[recompiles] (c): ``SolverFactory("ipm")`` on the storage LP, warmed
+    once, then over new prices: one ``factory.ipm`` build, every solve
+    converged and within 1e-6 of HiGHS."""
+    from dispatches_tpu_torch.solvers import SolverFactory, make_lp_data
+
+    nlp = _storage_lp(torch)
+    lp = make_lp_data(nlp, device=dev)
+    factory = SolverFactory("ipm", device=dev)
+    rng = np.random.default_rng(16)
+
+    def priced():
+        p = nlp.default_params()
+        p["p"]["price"] = np.abs(30.0 + 20.0 * rng.standard_normal(T))
+        return p
+
+    factory.solve(nlp, priced())
+    ps = [priced() for _ in range(P15_FACTORY_PRICES)]
+    results, wall = _steady(torch, "factory", lambda: [factory.solve(nlp, p) for p in ps])
+    counter = factory._cache.get(nlp, ())[0]._graft_counter
+    rel = max(abs(float(r.obj) - ref) / max(abs(ref), 1.0) for r, ref in zip(
+        results, [highs_objective(torch, nlp, lp, p, "factory price") for p in ps]))
+    print(f"[recompiles] factory: {len(ps)} ipm solves {wall * 1e3:.1f} ms, {counter.label} builds "
+          f"{counter.count}, obj_rel_err_vs_highs {rel:.3e}")
+    check(all(bool(r.converged) for r in results), "[recompiles] factory: a solve did not converge")
+    check((counter.label, counter.count) == ("factory.ipm", 1), "[recompiles] factory rebuilt")
+    check(rel <= IPM_RTOL, f"[recompiles] factory vs HiGHS {rel:.3e}")
+    return wall
+
+
+def recompiles_double_loop(torch, dev):
+    """[recompiles] (d): tests/test_analysis.py's 3-day wind-battery double
+    loop on the card: after the first day, two more days (a DA bid, 12 RT
+    bids and 12 tracking solves each) build nothing; one build per solver
+    callable, the projection tracker's counter at 0."""
+    from dispatches_tpu_torch.case_studies.renewables.wind_battery_double_loop import (
+        MultiPeriodWindBattery,
+    )
+    from dispatches_tpu_torch.grid import (
+        DoubleLoopCoordinator,
+        RenewableGeneratorModelData,
+        SelfScheduler,
+        Tracker,
+    )
+
+    n_hr, da_h, rt_h = 24 // P15_DL_PUSHES, 8, 4
+    cfs = 0.3 + 0.4 * np.random.default_rng(7).random(24 * (P15_DL_DAYS + 1))
+    md = RenewableGeneratorModelData(gen_name="4_WIND", bus="4", p_min=0.0, p_max=120.0)
+
+    def mp():
+        return MultiPeriodWindBattery(model_data=md, wind_capacity_factors=cfs, wind_pmax_mw=120,
+                                      battery_pmax_mw=15, battery_energy_capacity_mwh=60)
+
+    class Forecaster:
+        def forecast_day_ahead_prices(self, date, hour, bus, horizon, n):
+            base = 25.0 + 5.0 * np.sin(np.arange(horizon) + hour)
+            return np.stack([base * (1.0 + 0.1 * s) for s in range(n)])
+
+        forecast_real_time_prices = forecast_day_ahead_prices
+
+    coord = DoubleLoopCoordinator(
+        SelfScheduler(bidding_model_object=mp(), day_ahead_horizon=da_h, real_time_horizon=rt_h,
+                      n_scenario=1, forecaster=Forecaster(), max_iter=120, device=dev),
+        Tracker(tracking_model_object=mp(), tracking_horizon=rt_h, n_tracking_hour=n_hr,
+                max_iter=120, device=dev),
+        Tracker(tracking_model_object=mp(), tracking_horizon=da_h, n_tracking_hour=n_hr,
+                max_iter=120, device=dev))
+    check(coord._pushes_per_day == P15_DL_PUSHES, "[recompiles] double loop pushes per day")
+
+    def day(date):
+        coord.request_da_bids(date)
+        for k in range(P15_DL_PUSHES):
+            bids = coord.request_rt_bids(date, k * n_hr)
+            coord.push_rt_dispatch(date, k * n_hr, bids[0]["4_WIND"]["p_max"], {"4": 27.0})
+
+    dates = [f"2020-07-1{k}" for k in range(P15_DL_DAYS)]
+    t0 = time.perf_counter()
+    day(dates[0])
+    warm_wall = time.perf_counter() - t0
+    counters = [coord.bidder.day_ahead_model.solve._graft_counter,
+                coord.bidder.real_time_model.solve._graft_counter, coord.tracker._solve._graft_counter]
+    _, wall = _steady(torch, "double-loop", lambda: [day(d) for d in dates[1:]])
+    stats = coord.tracker.implemented_stats
+    last = coord.tracker.power_output
+    print(f"[recompiles] double loop: day 1 (warm-up) {warm_wall:.1f} s, days 2-{P15_DL_DAYS} "
+          f"{wall:.1f} s; builds {[c.count for c in counters]} "
+          f"({', '.join(c.label for c in counters)}), projection tracker "
+          f"{coord.projection_tracker._solve._graft_counter.count}; {len(stats)} tracked pushes, "
+          f"the last tracking solve status {int(coord.tracker.res.status)}, power {last.tolist()}")
+    check([c.count for c in counters] == [1, 1, 1], "[recompiles] double loop rebuilt a solver")
+    check(coord.projection_tracker._solve._graft_counter.count == 0,
+          "[recompiles] the projection tracker was solved")
+    check(len(stats) == P15_DL_DAYS * P15_DL_PUSHES
+          and coord.bidder.day_ahead_model._time_idx == P15_DL_DAYS * 24,
+          "[recompiles] the co-sim did not advance three days")
+    check(int(coord.tracker.res.status) == 0 and np.all(np.isfinite(last)),
+          "[recompiles] the last tracking solve did not converge to finite powers")
+    return wall
+
+
+def sanitize_smoke(torch, dev):
+    """[sanitize]: the JAX CI gates job's armed smoke on the card: 4
+    submitter threads of 16 requests each and one polling thread on an
+    armed ``SolveService`` (the ready schedule); all 64 DONE and no
+    lock-order inversion.  Then ``nan_guard`` on a NaN iterate warns, and
+    ``checkified(torch.log)`` raises on -1.0 and returns log(1.0) = 0."""
+    import threading
+    import warnings
+
+    from dispatches_tpu_torch.analysis import (
+        SanitizedLock,
+        SanitizeWarning,
+        checkified,
+        drain_sanitize_events,
+        lock_order_report,
+        nan_guard,
+        reset_lock_order,
+    )
+    from dispatches_tpu_torch.obs.soak import StubNLP, make_stub_solver
+    from dispatches_tpu_torch.plan import ExecutionPlan, PlanOptions
+    from dispatches_tpu_torch.serve import RequestStatus, ServeOptions, SolveService
+
+    reset_lock_order()
+    plan = ExecutionPlan(PlanOptions(inflight=2, schedule="ready", device=dev))
+    svc = SolveService(ServeOptions(max_batch=4, max_wait_ms=5.0, warm_start=False, plan=plan),
+                       device=dev)
+    check(isinstance(svc._lock, SanitizedLock) and isinstance(plan._lock, SanitizedLock)
+          and isinstance(plan._fence_lock, SanitizedLock), "[sanitize] the guards are not armed")
+    nlp, solver = StubNLP(), make_stub_solver()
+    handles, errs = [], []
+
+    def submitter():
+        try:
+            for _ in range(SANITIZE_PER_THREAD):
+                handles.append(svc.submit(nlp, nlp.default_params(), solver="pdlp",
+                                          base_solver=solver))
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errs.append(exc)
+
+    def poller(stop):
+        while not stop.is_set():
+            svc.poll()
+
+    t0 = time.perf_counter()
+    stop = threading.Event()
+    threads = [threading.Thread(target=submitter) for _ in range(SANITIZE_THREADS)]
+    threads.append(threading.Thread(target=poller, args=(stop,)))
+    for t in threads:
+        t.start()
+    for t in threads[:-1]:
+        t.join(timeout=300)
+    stop.set()
+    threads[-1].join(timeout=60)
+    check(not any(t.is_alive() for t in threads), "[sanitize] a thread is still running")
+    svc.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    report = lock_order_report()
+    done = sum(h.result().status == RequestStatus.DONE for h in handles)
+    print(f"[sanitize] {len(handles)} requests from {SANITIZE_THREADS} threads + 1 poller in "
+          f"{wall * 1e3:.1f} ms: {done} DONE, {len(report['edges'])} order edges, "
+          f"{len(report['inversions'])} inversions, errors {errs}")
+    check(not errs and len(handles) == SANITIZE_THREADS * SANITIZE_PER_THREAD
+          and done == len(handles), "[sanitize] a request did not end DONE")
+    check(report["inversions"] == [], f"[sanitize] inversions {report['inversions']}")
+
+    drain_sanitize_events()
+    bad = torch.tensor([1.0, float("nan")], dtype=torch.float64, device=dev)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        nan_guard("phase15.iterate", bad)
+    events = drain_sanitize_events()
+    check(events == ["phase15.iterate"] and any(issubclass(w.category, SanitizeWarning)
+                                                for w in seen), "[sanitize] nan_guard did not warn")
+    log = checkified(torch.log)
+    one = log(torch.tensor([1.0], dtype=torch.float64, device=dev))
+    try:
+        log(torch.tensor([-1.0], dtype=torch.float64, device=dev))
+        raised = None
+    except FloatingPointError as exc:
+        raised = str(exc)
+    print(f"[sanitize] nan_guard events {events}; checkified(torch.log)(1.0) = "
+          f"{float(one[0])}, (-1.0) raised: {raised}")
+    check(float(one[0]) == 0.0, "[sanitize] checkified(torch.log)(1.0) != 0")
+    check(raised is not None and "nan" in raised, "[sanitize] checkified did not raise on a NaN")
+    return wall
+
+
+def phase_analysis(torch, dev):
+    """Phase 15, with the sweep kernels' counts set to 0 before and read
+    after: the analysis passes and the steady-state contract on the card.
+    The phase arms ``DISPATCHES_TPU_SANITIZE`` and
+    ``DISPATCHES_TPU_WARN_RECOMPILE`` in its own process (a child of the
+    whole run) before it builds anything: every serve and plan guard is a
+    sanitized lock and every nan_guard checks its tensors."""
+    from dispatches_tpu_torch.kernels import pdhg_sweep as ks
+
+    os.environ.update(P15_ARMED)
+    ks.avg_sweep.launches = 0
+    ks.halpern_sweep.launches = 0
+    t0 = time.perf_counter()
+    lint_cli(torch)
+    walls = {}
+    wall, launches = recompiles_main_path(torch, dev, flagship(torch, dev))
+    walls["main-path"] = wall
+    walls["serve"] = recompiles_serve(torch, dev)
+    walls["factory"] = recompiles_factory(torch, dev)
+    walls["double-loop"] = recompiles_double_loop(torch, dev)
+    walls["sanitize"] = sanitize_smoke(torch, dev)
+    print(f"[phase15] {time.perf_counter() - t0:.1f} s (steady walls: "
+          f"{', '.join(f'{k} {v:.2f} s' for k, v in walls.items())}); sweep kernel launches during "
+          f"it: halpern {ks.halpern_sweep.launches} ({launches} in [recompiles]' steady main path), "
+          f"avg {ks.avg_sweep.launches}")
+    check(ks.halpern_sweep.launches >= launches > 0, "[phase15] the main path launched no halpern")
+    check(ks.avg_sweep.launches == 0, "[phase15] an avg sweep was launched")
+
+
 # The whole run drives these groups of phases in child processes (this
 # script with a private flag), started after phase 3's kernel timings and
 # running beside phases 4, 5, 8 and 9 in the main process: every phase
@@ -5349,14 +5782,23 @@ def phase_fleet(torch, dev):
 CHILD_FLAG = "--phase-child"
 CHILD_GROUPS = (("6",), ("7",), ("10", "salt-hx", "isp", "isp-init", "isp-analysis"),
                 ("10", "mp-eval", "usc-bid-track", "mp-usc"),
-                ("11",), ("12",), ("13",), ("14",))
+                ("11",), ("12",), ("13",))
+# started one after another once every group above has ended.  Phase 14's
+# [net] holds each RPC to a 30 s deadline: beside the groups above (whose
+# host threads share 8 cores, and put phase 13's real-clock soak into its
+# one-request-per-batch mode) its flush p99 reached 23.0 s on the parent
+# tree and past 30 s on this one, on one H100; alone it stays far inside.
+# Phase 15 comes last: its double loop is one more busy CUDA context.
+LATE_CHILD_GROUPS = (("14",), ("15",))
 CHILD_THREADS = "2"        # BLAS and torch threads per child (8 host cores in all)
 WHOLE_RUN_S = 1140.0       # the run fails itself past this, inside the 1,200 s limit
 
 
 def whole_run_phase(torch, dev, phase, parts=()):
-    """Phase 6, 7, 10, 11 (``parts`` of it), 12, 13 or 14 at the whole run's depth."""
-    if phase == "14":
+    """Phase 6, 7, 10, 11 (``parts`` of it), 12, 13, 14 or 15 at the whole run's depth."""
+    if phase == "15":
+        phase_analysis(torch, dev)
+    elif phase == "14":
         phase_fleet(torch, dev)
     elif phase == "13":
         phase_obs(torch, dev)
@@ -5374,7 +5816,8 @@ def whole_run_phase(torch, dev, phase, parts=()):
 
 def phase_child(torch, parent, phase, parts):
     """A child process of the whole run: it dies with its parent
-    (PR_SET_PDEATHSIG), and drives one group of ``CHILD_GROUPS``."""
+    (PR_SET_PDEATHSIG), and drives one group of ``CHILD_GROUPS`` or
+    ``LATE_CHILD_GROUPS``."""
     import ctypes
     import signal
 
@@ -5385,8 +5828,8 @@ def phase_child(torch, parent, phase, parts):
     whole_run_phase(torch, torch.device("cuda"), phase, parts)
 
 
-def start_children():
-    """Start every group of ``CHILD_GROUPS``, its standard output and error
+def start_children(groups=CHILD_GROUPS):
+    """Start every group of ``groups``, its standard output and error
     into files under build/ (echoed when the child is joined)."""
     import tempfile
 
@@ -5394,7 +5837,7 @@ def start_children():
     env = dict(os.environ, PYTHONUNBUFFERED="1", OMP_NUM_THREADS=CHILD_THREADS,
                MKL_NUM_THREADS=CHILD_THREADS, OPENBLAS_NUM_THREADS=CHILD_THREADS)
     children = []
-    for group in CHILD_GROUPS:
+    for group in groups:
         out = tempfile.TemporaryFile("w+", dir=ROOT / "build")
         err = tempfile.TemporaryFile("w+", dir=ROOT / "build")
         proc = subprocess.Popen(
@@ -5402,7 +5845,7 @@ def start_children():
              *group], stdout=out, stderr=err, env=env, cwd=ROOT)
         children.append((group, proc, out, err, time.perf_counter()))
     print(f"[children] started {len(children)}: "
-          + "; ".join(" ".join(g) for g in CHILD_GROUPS))
+          + "; ".join(" ".join(g) for g in groups))
     return children
 
 
@@ -5462,16 +5905,23 @@ def main():
                                              parts=sys.argv[3:] or DESIGN_PARTS),
              "12": lambda dev: phase_mesh(torch, dev),
              "13": lambda dev: phase_obs(torch, dev),
-             "14": lambda dev: phase_fleet(torch, dev)}
-    part_names = {"10": STORAGE_PARTS, "11": DESIGN_PARTS}
+             "14": lambda dev: phase_fleet(torch, dev),
+             "15": lambda dev: phase_analysis(torch, dev)}
     if sys.argv[1:2] == ["--only-phase"]:
         # a development run of one phase alone: no kernel build, no result
-        # line; phases 10 and 11 take a list of their parts
+        # line; phases 10 and 11 take a list of their parts, and phase 11's
+        # discharge-study the sources it is restricted to
+        from dispatches_tpu_torch.case_studies.fossil.storage_discharge_design import SOURCES
+
+        part_names = {"10": STORAGE_PARTS, "11": DESIGN_PARTS + SOURCES}
+        parts = set(sys.argv[3:])
         if sys.argv[2:3] not in [[n] for n in alone] or (
-                sys.argv[3:] and (sys.argv[2] not in part_names
-                                  or set(sys.argv[3:]) - set(part_names[sys.argv[2]]))):
+                parts and (sys.argv[2] not in part_names
+                           or parts - set(part_names[sys.argv[2]])
+                           or (parts & set(SOURCES) and "discharge-study" not in parts))):
             fail(f"--only-phase takes one of {', '.join(alone)}; 10 also takes parts of "
-                 f"{', '.join(STORAGE_PARTS)}; 11 of {', '.join(DESIGN_PARTS)}")
+                 f"{', '.join(STORAGE_PARTS)}; 11 of {', '.join(DESIGN_PARTS)} (and, with "
+                 f"discharge-study, sources of {', '.join(SOURCES)})")
         phase_device_info(torch)
         alone[sys.argv[2]](torch.device("cuda"))
         print(f"[only-phase {sys.argv[2]}] done (no result line: not the smoke test's full run)")
@@ -5496,6 +5946,10 @@ def main():
         phase_fossil_serve(torch, dev, main_run)
         print(f"[main] phases 1-5, 8 and 9 done at {time.perf_counter() - t_start:.1f} s")
         join_children(children, t_start)
+        for group in LATE_CHILD_GROUPS:
+            late = start_children((group,))
+            children += late
+            join_children(late, t_start)
     finally:
         stop_children(children)
     print(f"[whole] {time.perf_counter() - t_start:.1f} s")

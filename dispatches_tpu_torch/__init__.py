@@ -69,7 +69,12 @@ and the rest of the execution layer: scenario meshes and sharding
 (``parallel/``), the plan's mesh placement, the adaptive in-flight depth
 controller (``plan/adaptive.py``), the multichip dry run, and the obs
 modules they read (``obs/online.py``, ``obs/timeline.py``,
-``obs/profile.py``).
+``obs/profile.py``); the rest of the obs host tier and the multi-process
+tier (``obs/``, ``net/``, ``fleet/``); and the analysis passes
+(``analysis/``: graftlint with torch rules, lockcheck, the self-test
+corpus, ``python -m dispatches_tpu_torch.analysis``, and the recompile
+accounting of ``analysis/runtime.py``).  Every module of the JAX package
+has its counterpart here.
 """
 
 import torch

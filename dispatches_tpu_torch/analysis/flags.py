@@ -1,8 +1,19 @@
 """Registry of the ``DISPATCHES_TPU_*`` environment flags the port reads.
 
-The port keeps the JAX package's flag names, so one setting steers both
-packages.  Only the flags this package reads are registered here; a
-flag is added in the same change that reads it.  Stdlib only.
+The port keeps the JAX package's flag names and meanings, so one setting
+steers both packages.  Only the flags this package reads are registered
+here; a flag is added in the same change that reads it.  graftlint rule
+GL006 checks every ``os.environ``/``os.getenv`` read of a
+``DISPATCHES_TPU_*`` name in the package against ``REGISTERED_FLAGS``
+(with ``_PREFIX``).
+
+Not registered, because nothing here reads them: the JAX package's
+``COMPILE_CACHE`` and ``NO_COMPILE_CACHE`` (XLA's persistent compile
+cache; torch compiles nothing per input shape) and ``NO_X64`` (JAX's
+float64 mode; the port states every dtype), and its test-lane flags
+``SLOW`` and ``EXTENDED``, which only tests read.
+
+Stdlib only: the linter imports this module to learn the registry.
 """
 
 from __future__ import annotations
@@ -11,6 +22,13 @@ import os
 
 # name (without the DISPATCHES_TPU_ prefix) -> what setting it does
 REGISTERED_FLAGS = {
+    "DATA": "override the vendored reference-data directory "
+    "(case_studies.renewables.load_parameters.data_dir)",
+    "RTS_GMLC": "override the RTS-GMLC source-data directory "
+    "(workflow.managed)",
+    "WARN_RECOMPILE": "warn whenever a counted program "
+    "(analysis.runtime.ProgramCounter) runs a new argument signature "
+    "after its first (analysis.runtime.RecompileWarning)",
     "SANITIZE": "enable runtime NaN/Inf guards on solver iterates "
     "(analysis.runtime.nan_guard; costs one device sync per guard)",
     "PDLP_ALGO": "override PDLPOptions.algorithm ('avg' | 'halpern') "

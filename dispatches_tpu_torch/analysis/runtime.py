@@ -1,6 +1,6 @@
 """Runtime sanitizers: opt-in NaN/Inf guards on solver iterates, the
-program-build counter of the execution plan, and the lock-order
-sanitizer of the concurrent layers.
+program-build accounting of the execution plan and the solvers, and the
+lock-order sanitizer of the concurrent layers.
 
 Counterpart of ``dispatches_tpu/analysis/runtime.py``:
 
@@ -13,19 +13,29 @@ Counterpart of ``dispatches_tpu/analysis/runtime.py``:
   jit cache would key on: the distinct argument signatures (shapes and
   dtypes) a program has run.  That is the quantity behind the serve
   layer's "compiled programs" and a bucket's compiles, so both packages
-  report the same numbers.
+  report the same numbers.  Every counter registers itself, so
+  ``recompile_counts()``, ``reset_recompile_counts()`` and
+  ``assert_no_recompiles()`` keep the JAX package's steady-state
+  contract, and ``DISPATCHES_TPU_WARN_RECOMPILE`` warns
+  (:class:`RecompileWarning`) on every signature after a program's
+  first.
 * :class:`CountedProgram` wraps a solver callable with such a counter,
   where the JAX package wraps it in ``graft_jit``.
+* ``checkified``: the counterpart of checkify's ``nan_checks``, a
+  dispatch mode that checks every aten op's floating outputs (a
+  debugging tool, off every main path).
 * ``sanitized_lock``: a copy of the JAX package's (pure Python).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import sys
 import threading
 import time
 import warnings
-from typing import Dict, Hashable, List, Tuple
+from typing import Callable, Dict, Hashable, List, Tuple
 
 import torch
 
@@ -35,15 +45,24 @@ __all__ = [
     "CountedProgram",
     "LockOrderError",
     "ProgramCounter",
+    "RecompileWarning",
     "SanitizeWarning",
     "SanitizedLock",
+    "assert_no_recompiles",
+    "checkified",
     "drain_sanitize_events",
     "lock_order_report",
     "nan_guard",
+    "recompile_counts",
     "reset_lock_order",
+    "reset_recompile_counts",
     "sanitize_enabled",
     "sanitized_lock",
 ]
+
+
+class RecompileWarning(UserWarning):
+    """A counted program ran a new argument signature after its first."""
 
 
 class SanitizeWarning(UserWarning):
@@ -104,9 +123,44 @@ def drain_sanitize_events() -> List[str]:
     return out
 
 
+def checkified(fun: Callable) -> Callable:
+    """Wrap ``fun`` so that the first aten operation that writes a NaN
+    into a floating output raises ``FloatingPointError`` (message: "nan
+    generated by ...") instead of propagating it: the counterpart of
+    ``jax.experimental.checkify`` with ``nan_checks``.
+
+    Every operation inside ``fun`` runs under a
+    ``TorchDispatchMode`` that reads its outputs back (a device sync per
+    operation on the card, and noise from benign ±inf arithmetic) — a
+    tool for debugging one function, not for wiring into hot paths."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class _NanChecks(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                        and bool(torch.isnan(t).any())):
+                    raise FloatingPointError(
+                        f"nan generated by primitive {func} "
+                        f"(output of shape {tuple(t.shape)})")
+            return out
+
+    @functools.wraps(fun)
+    def run(*args, **kwargs):
+        with _NanChecks():
+            return fun(*args, **kwargs)
+
+    return run
+
+
 # ---------------------------------------------------------------------------
 # program-build accounting (the port's graft_jit compile counter)
 # ---------------------------------------------------------------------------
+
+
+_COUNTERS: List["ProgramCounter"] = []
 
 
 class ProgramCounter:
@@ -115,7 +169,9 @@ class ProgramCounter:
     ``observe(signature)`` returns True (and counts, and tells the obs
     layer) the first time a signature is seen — where ``jax.jit`` would
     trace and compile.  Counts are per program instance, as the JAX
-    package's compile counters are per wrapper."""
+    package's compile counters are per wrapper: two trackers each own a
+    program, and each is expected to build once.  Every counter
+    registers itself for ``recompile_counts()``."""
 
     __slots__ = ("label", "count", "_seen")
 
@@ -123,6 +179,8 @@ class ProgramCounter:
         self.label = label
         self.count = 0
         self._seen: set = set()
+        with _lock:
+            _COUNTERS.append(self)
 
     def observe(self, signature: Hashable) -> bool:
         with _lock:
@@ -131,6 +189,13 @@ class ProgramCounter:
             self._seen.add(signature)
             self.count += 1
             count = self.count
+        if count > 1 and flag_enabled("WARN_RECOMPILE"):
+            warnings.warn(
+                f"'{self.label}' ran a new argument signature (build "
+                f"#{count}) after warm-up; check for shape/dtype churn",
+                RecompileWarning,
+                stacklevel=3,
+            )
         try:  # telemetry never breaks the dispatch it describes
             from dispatches_tpu_torch.obs import registry, trace
 
@@ -169,6 +234,63 @@ class CountedProgram:
                 lambda *a: self._fn(*a, **kwargs), c.label, c.count,
                 (params,) + args)
         return self._fn(params, *args, **kwargs)
+
+
+def recompile_counts() -> Dict[str, int]:
+    """Signature counts per program, keyed ``label`` (``label#k`` on
+    label collisions, in registration order)."""
+    with _lock:
+        counters = list(_COUNTERS)
+    out: Dict[str, int] = {}
+    seen: Dict[str, int] = {}
+    for c in counters:
+        k = seen.get(c.label, 0)
+        seen[c.label] = k + 1
+        out[c.label if k == 0 else f"{c.label}#{k}"] = c.count
+    return out
+
+
+def reset_recompile_counts() -> None:
+    """Zero every counter and forget the programs registered so far.
+
+    Counters stay attached to their (still live) programs and keep the
+    signatures they have seen, as a jit cache stays warm: a later new
+    signature of an old program is still observable through its
+    counter; the global report simply starts fresh.
+    """
+    with _lock:
+        for c in _COUNTERS:
+            c.count = 0
+        _COUNTERS.clear()
+
+
+@contextlib.contextmanager
+def assert_no_recompiles(allow: Tuple[str, ...] = ()):
+    """Assert that no counted program runs a new signature inside the
+    block.
+
+    Steady-state contract: after warm-up, a double-loop day must reuse
+    every solver program it built — zero new signatures, including the
+    first signatures of programs created inside the block (a new
+    program in steady state IS a build the warm-up failed to amortize).
+    ``allow`` exempts labels that legitimately build (e.g. a solver for
+    a new horizon requested mid-run).
+    """
+    with _lock:
+        before = {id(c): c.count for c in _COUNTERS}
+    yield
+    with _lock:
+        offending = [
+            (c.label, c.count - before.get(id(c), 0))
+            for c in _COUNTERS
+            if c.count > before.get(id(c), 0) and c.label not in allow
+        ]
+    if offending:
+        detail = ", ".join(f"{lbl}: +{n}" for lbl, n in offending)
+        raise AssertionError(
+            f"recompiles detected in steady state: {detail} "
+            "(every call should reuse a program built in warm-up)"
+        )
 
 
 class LockOrderError(RuntimeError):

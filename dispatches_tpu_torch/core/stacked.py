@@ -280,6 +280,8 @@ class StackedScenarioNLP:
 
     @staticmethod
     def _host(x):
+        if isinstance(x, np.ndarray):  # already on the host: no transfer
+            return x
         return torch.as_tensor(x).detach().cpu().numpy()
 
     def unravel(self, x):
@@ -302,11 +304,13 @@ class StackedScenarioNLP:
         _, e = self._split(self._host(x))
         return np.asarray(e) * self._e_scale
 
-    def scenario_profiles(self, x, params=None):
-        """(S, T) coupled profiles at a solution, on ``x``'s device,
-        returned as host numpy."""
+    def scenario_profiles(self, x, params=None, host: bool = True):
+        """(S, T) coupled profiles at a solution, computed on ``x``'s
+        device and returned as host numpy (``host=False``: the tensor on
+        that device, so that a caller can move many at once)."""
         params = self.default_params() if params is None else params
         x = x if isinstance(x, torch.Tensor) else torch.as_tensor(
             np.asarray(x, dtype=np.float64))
         xs, _ = self._split(x)
-        return self._host(self._profiles(xs, params))
+        out = self._profiles(xs, params)
+        return self._host(out) if host else out

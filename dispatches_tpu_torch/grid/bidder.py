@@ -210,17 +210,20 @@ class _BidderBase:
             res = self._mesh_solve(vsolve, batched, mesh, len(dates),
                                    {"energy_price", *ov_keys})
         xs = res.x
-        out = {}
-        for i, d in enumerate(dates):
-            day_params = {"p": {**params["p"],
-                                "energy_price": prices_days[i],
-                                **{k: np.asarray(ov[i], float)
-                                   for k, ov in ov_keys.items()}},
-                          "fixed": params["fixed"]}
-            powers = blk.stacked.scenario_profiles(xs[i], day_params)
-            out[d] = self._format_bids(blk, prices_days[i], powers,
-                                       xs[i].detach().cpu().numpy(), H)
-        return out
+        # every day's profiles are computed on the solve's device and come
+        # to the host with the solutions in one transfer each, not one
+        # sync per day
+        powers = torch.stack([
+            blk.stacked.scenario_profiles(
+                xs[i], {"p": {**params["p"],
+                              "energy_price": prices_days[i],
+                              **{k: np.asarray(ov[i], float)
+                                 for k, ov in ov_keys.items()}},
+                        "fixed": params["fixed"]}, host=False)
+            for i in range(len(dates))]).detach().cpu().numpy()
+        xs = xs.detach().cpu().numpy()
+        return {d: self._format_bids(blk, prices_days[i], powers[i], xs[i], H)
+                for i, d in enumerate(dates)}
 
     def _mesh_solve(self, vsolve, batched, mesh, n_days, day_keys):
         """``vsolve(batched)`` with the day axis split over ``mesh``: the

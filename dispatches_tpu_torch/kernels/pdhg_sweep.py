@@ -85,7 +85,9 @@ def library_path() -> Path:
 def build():
     """Build (if needed) and load the kernel library; returns it."""
     global _lib
-    with _build_lock:
+    # held across the nvcc build on purpose: the library is built once per
+    # process, and every other launcher must wait for it, not build it too
+    with _build_lock:  # lockcheck: intentional(GL009)
         if _lib is None:
             lib = ctypes.CDLL(str(library_path()))
             for name in _ENTRIES:

@@ -6,9 +6,11 @@ method so reference-style drivers read like the reference's Pyomo code:
 ``SolverFactory("cbc")`` (LP) maps to the per-scenario PDLP solver with an
 IPM fallback for non-affine models, ``SolverFactory("ipopt")`` (NLP) to
 the interior-point solver.  Each solver object caches what it built per
-(nlp, options), so a driver that calls ``solve()`` in a loop builds once
-(the JAX package's ``graft_jit`` compile cache has no torch counterpart:
-the cache of built solvers is what keeps "build once per nlp+options").
+(nlp, options), so a driver that calls ``solve()`` in a loop builds once.
+Each built solver is a :class:`~dispatches_tpu_torch.analysis.runtime.
+CountedProgram` under the JAX package's ``graft_jit`` labels
+(``factory.ipm``, ``factory.pdlp``, ``factory.pdlp_ipm_fallback``), so
+``recompile_counts()`` and ``assert_no_recompiles()`` see its builds.
 
 ``device`` (a constructor argument, ``cuda`` unless given) is where every
 solver this object builds runs.
@@ -19,6 +21,7 @@ from __future__ import annotations
 import weakref
 
 from dispatches_tpu_torch import resolve_device
+from dispatches_tpu_torch.analysis.runtime import CountedProgram
 from dispatches_tpu_torch.solvers.ipm import IPMOptions, make_ipm_solver
 from dispatches_tpu_torch.solvers.pdlp import (
     PDLPOptions,
@@ -82,7 +85,8 @@ class _IPMSolver:
             ipm_opts = IPMOptions(**opts)
             # resolved once, at build time (env override included), so
             # tee reports the precision the cached solver was built with
-            entry = (make_ipm_solver(nlp, ipm_opts, device=self.device),
+            entry = (CountedProgram(make_ipm_solver(nlp, ipm_opts, device=self.device),
+                                    label="factory.ipm"),
                      resolve_pdlp_precision(ipm_opts.precision))
             self._cache.set(nlp, key, entry)
         solver, prec = entry
@@ -130,7 +134,9 @@ class _PDLPSolver:
                 prec = resolve_pdlp_precision(lp_kw.get("precision"))
                 kind_solver = (
                     "pdlp",
-                    make_pdlp_solver(nlp, PDLPOptions(**lp_kw), device=self.device),
+                    CountedProgram(make_pdlp_solver(nlp, PDLPOptions(**lp_kw),
+                                                    device=self.device),
+                                   label="factory.pdlp"),
                     (algo, prec),
                 )
             except ValueError:  # not affine: hand off to the NLP solver
@@ -138,7 +144,10 @@ class _PDLPSolver:
                     print("[dispatches_tpu.pdlp] model not affine; using IPM")
                 ipm_kw = {k: v for k, v in opts.items() if k in self._IPM_FIELDS}
                 kind_solver = (
-                    "ipm", make_ipm_solver(nlp, IPMOptions(**ipm_kw), device=self.device),
+                    "ipm",
+                    CountedProgram(make_ipm_solver(nlp, IPMOptions(**ipm_kw),
+                                                   device=self.device),
+                                   label="factory.pdlp_ipm_fallback"),
                     None)
             self._cache.set(nlp, key, kind_solver)
         kind, solver, meta = kind_solver

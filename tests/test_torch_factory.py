@@ -22,6 +22,7 @@ from dispatches_tpu import Flowsheet as JFlowsheet  # noqa: E402
 from dispatches_tpu.core.graph import tshift as j_tshift  # noqa: E402
 from dispatches_tpu.solvers.factory import SolverFactory as JSolverFactory  # noqa: E402
 
+from dispatches_tpu_torch.analysis import assert_no_recompiles  # noqa: E402
 from dispatches_tpu_torch.core.graph import Flowsheet as TFlowsheet  # noqa: E402
 from dispatches_tpu_torch.core.graph import tshift as t_tshift  # noqa: E402
 from dispatches_tpu_torch.solvers.factory import (  # noqa: E402
@@ -72,6 +73,23 @@ def test_ipm_factory_builds_once():
         assert bool(res.converged)
     assert len(factory._cache) == 1
     assert factory._cache.get(nlp, (("max_iter", 120),)) is built
+
+
+def test_ipm_factory_solves_without_recompiling():
+    """tests/test_factory.py's steady-state contract on the port: after
+    the first solve, a loop over new prices builds no program; the one
+    build is counted under the JAX package's label."""
+    nlp = _t_model()
+    factory = SolverFactory("ipm", max_iter=120, device=CPU)
+    rng = np.random.default_rng(0)
+    first = factory.solve(nlp, _priced(nlp, 30 + 10 * rng.standard_normal(8)))
+    assert bool(first.converged)
+    with assert_no_recompiles():
+        for _ in range(4):
+            res = factory.solve(nlp, _priced(nlp, 30 + 10 * rng.standard_normal(8)))
+            assert bool(res.converged)
+    counter = factory._cache.get(nlp, (("max_iter", 120),))[0]._graft_counter
+    assert (counter.label, counter.count) == ("factory.ipm", 1)
 
 
 def test_factory_cache_two_sequential_nlps():

@@ -35,6 +35,7 @@ from dispatches_tpu.serve import ServeOptions as JServeOptions  # noqa: E402
 from dispatches_tpu.serve import SolveService as JSolveService  # noqa: E402
 from dispatches_tpu.serve.__main__ import _arbitrage_nlp as j_arbitrage_nlp  # noqa: E402
 
+from dispatches_tpu_torch.analysis import assert_no_recompiles  # noqa: E402
 from dispatches_tpu_torch.faults import inject as t_faults  # noqa: E402
 from dispatches_tpu_torch.serve import (  # noqa: E402
     RequestStatus,
@@ -44,7 +45,12 @@ from dispatches_tpu_torch.serve import (  # noqa: E402
 )
 from dispatches_tpu_torch.serve import service as service_mod  # noqa: E402
 from dispatches_tpu_torch.serve.__main__ import _arbitrage_nlp  # noqa: E402
-from dispatches_tpu_torch.solvers import PDLPOptions, make_pdlp_solver  # noqa: E402
+from dispatches_tpu_torch.solvers import (  # noqa: E402
+    IPMOptions,
+    PDLPOptions,
+    make_ipm_solver,
+    make_pdlp_solver,
+)
 from test_torch_stacked import one_torch_thread  # noqa: E402,F401
 
 CPU = "cpu"
@@ -263,6 +269,55 @@ def test_ipm_bucket_matches_jax(nlps):
 # ---------------------------------------------------------------------------
 # port-only contracts
 # ---------------------------------------------------------------------------
+
+
+def test_steady_state_compile_count_and_no_recompiles(nlps):
+    """tests/test_serve.py's steady-state acceptance on the port: two
+    waves of (8 PDLP at T = 8, 8 IPM at T = 12) a round fill one 16-lane
+    program per bucket; the PDLP objectives equal a direct lane-axis
+    solve's within 1e-6; the compile count equals the programs (2), and
+    an identical second round builds nothing."""
+    clock = FakeClock()
+    svc = SolveService(ServeOptions(max_batch=16, max_wait_ms=1e9, warm_start=False),
+                       clock=clock, device=CPU)
+    nlp8, nlp12 = nlps[8][1], nlps[12][1]
+    prices8, prices12 = _prices(8, 16, seed=11), _prices(12, 16, seed=12)
+    reqs = []
+    for w in range(2):
+        reqs += [("pdlp", nlp8, _params(nlp8, p)) for p in prices8[8 * w:8 * w + 8]]
+        reqs += [("ipm", nlp12, _params(nlp12, p)) for p in prices12[8 * w:8 * w + 8]]
+
+    def run_round():
+        handles = []
+        for kind, nlp, params in reqs:
+            clock.advance(1e-4)
+            handles.append(svc.submit(nlp, params, solver=kind, options=(
+                {"tol": 1e-9} if kind == "pdlp" else {"max_iter": 200})))
+        svc.flush_all()
+        return [h.result() for h in handles]
+
+    round1 = run_round()
+    assert all(r.status == RequestStatus.DONE for r in round1)
+    # the direct solves with the buckets' options, all lanes at once
+    direct = {
+        "pdlp": make_pdlp_solver(nlp8, PDLPOptions(tol=1e-9, dtype="float64"), device=CPU)(
+            _params(nlp8, np.stack(prices8))),
+        "ipm": make_ipm_solver(nlp12, IPMOptions(max_iter=200), device=CPU)(
+            _params(nlp12, np.stack(prices12)))}
+    for kind in ("pdlp", "ipm"):
+        got = [r.obj for (k, _, _), r in zip(reqs, round1) if k == kind]
+        assert got == pytest.approx([float(v) for v in direct[kind].obj], abs=1e-6), kind
+    m = svc.metrics()
+    assert m["buckets"]["pdlp#0"]["lane_counts"] == [16]
+    assert m["buckets"]["ipm#1"]["lane_counts"] == [16]
+    assert m["programs"] == m["compile_count"] == 2
+    assert m["solved"] == 32 and m["timeouts"] == 0
+    with assert_no_recompiles():
+        round2 = run_round()
+    assert all(r.status == RequestStatus.DONE for r in round2)
+    m2 = svc.metrics()
+    assert m2["compile_count"] == 2 and m2["solved"] == 64
+    assert m2["occupancy_mean"] == pytest.approx(1.0)
 
 
 def test_predictor_ladder_degrades_one_rung_at_a_time(nlps):

@@ -41,6 +41,7 @@ RECORDS = {
     "soak_reports_jax": ("test_torch_soak", "jax_record"),
     "solverlog_traces_jax": ("test_torch_solverlog", "jax_record"),
     "obs_cli_keys_jax": ("test_torch_obs_cli", "jax_record"),
+    "analysis_recompile_counts_jax": ("test_torch_analysis", "jax_record"),
 }
 
 

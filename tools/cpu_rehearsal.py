@@ -13,6 +13,7 @@ the operations their solver iterations dispatch.
     python3 tools/cpu_rehearsal.py phase10 [salt] [isp] [init] [analysis] [mp] [bid] [bid25] [mpusc]
     python3 tools/cpu_rehearsal.py phase11 [--whole] [tes] [tube] [scpc] [scpc-tes] [charge-design] ...
     python3 tools/cpu_rehearsal.py phase14 [fleet] [net] [net-trace] [fleet-soak] [fleet-cli]
+    python3 tools/cpu_rehearsal.py phase15 [lint] [main-path] [serve] [factory] [double-loop] [sanitize]
 
 ``ops`` counts the aten operations that one Newton iteration of the IPM
 dispatches (the difference between ``max_iter=3`` and ``max_iter=1``,
@@ -70,6 +71,11 @@ at maxiter 1, the enumerations cut; ~3 min for every part).
 ``phase14`` runs phase 14's parts on the CPU (the workers and the CLI
 children with ``--device cpu``); ``[fleet-soak]``'s card-vs-CPU
 comparison becomes CPU vs CPU.  Counts and statuses, never a device time.
+
+``phase15`` runs phase 15's parts on the CPU, armed as on the card
+(``DISPATCHES_TPU_SANITIZE`` and ``DISPATCHES_TPU_WARN_RECOMPILE``); the
+sweep kernels take their plain versions here and count no launch, so
+``[recompiles]``' main-path launch check fails by design.
 """
 
 from __future__ import annotations
@@ -452,6 +458,35 @@ def phase14(parts):
     print(f"{len(failed)} check(s) failed")
 
 
+def phase15(parts):
+    import os
+
+    _stub_cuda()
+    torch.set_num_threads(2)
+    failed = []
+
+    def check(cond, msg):
+        if not cond:
+            print(f"check failed: {msg}")
+            failed.append(msg)
+
+    cs.check = check
+    os.environ.update(cs.P15_ARMED)
+    if "lint" in parts:
+        cs.lint_cli(torch)
+    if "main-path" in parts:
+        cs.recompiles_main_path(torch, CPU, cs.flagship(torch, CPU))
+    if "serve" in parts:
+        cs.recompiles_serve(torch, CPU)
+    if "factory" in parts:
+        cs.recompiles_factory(torch, CPU)
+    if "double-loop" in parts:
+        cs.recompiles_double_loop(torch, CPU)
+    if "sanitize" in parts:
+        cs.sanitize_smoke(torch, CPU)
+    print(f"{len(failed)} check(s) failed")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -484,6 +519,9 @@ def main(argv=None):
     p14.add_argument("parts", nargs="*",
                      default=["fleet", "net", "net-trace", "fleet-soak", "fleet-cli"],
                      choices=["fleet", "net", "net-trace", "fleet-soak", "fleet-cli"])
+    p15_parts = ["lint", "main-path", "serve", "factory", "double-loop", "sanitize"]
+    p15 = sub.add_parser("phase15", help="chip_smoke.py phase 15 on the CPU")
+    p15.add_argument("parts", nargs="*", default=p15_parts, choices=p15_parts)
     cc = sub.add_parser("crash-child", help="phase 9's [crash] child, on the CPU")
     cc.add_argument("dir")
     args = ap.parse_args(argv)
@@ -501,6 +539,8 @@ def main(argv=None):
         cs.crash_child(args.dir, device="cpu")
     elif args.cmd == "phase14":
         phase14(set(args.parts))
+    elif args.cmd == "phase15":
+        phase15(set(args.parts))
     elif args.cmd == "phase9":
         phase9(args.parts)
     elif args.cmd == "phase8":
